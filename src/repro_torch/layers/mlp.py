@@ -1,0 +1,30 @@
+"""Feed-forward blocks: SwiGLU / GeGLU / plain GeLU.
+
+Weights are stored in the storage dtype (f32) and cast to the compute
+dtype at each use, as in the JAX package.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.layers.common import activation_fn, dense_init
+
+
+def init_ffn(generator, d_model: int, d_ff: int, activation: str, dtype, device):
+    p = {
+        "w_in": dense_init((d_model, d_ff), dtype, generator, device),
+        "w_out": dense_init((d_ff, d_model), dtype, generator, device),
+    }
+    if activation in ("swiglu", "geglu"):
+        p["w_gate"] = dense_init((d_model, d_ff), dtype, generator, device)
+    return p
+
+
+def apply_ffn(params, x: torch.Tensor, activation: str, dtype) -> torch.Tensor:
+    act = activation_fn(activation)
+    h = x @ params["w_in"].to(dtype)
+    if "w_gate" in params:
+        h = act(x @ params["w_gate"].to(dtype)) * h
+    else:
+        h = act(h)
+    return h @ params["w_out"].to(dtype)

@@ -1,0 +1,48 @@
+"""The port stands alone: importing every ``repro_torch`` module pulls in
+neither JAX nor any module of the JAX package, and the entry points run
+on CUDA unless asked for the CPU."""
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")
+
+_PROBE = """
+import importlib, pkgutil, sys
+import repro_torch
+names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
+    repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "repro"
+             or m.startswith("repro."))
+print(len(names), bad)
+"""
+
+
+def test_port_imports_no_jax_and_no_repro():
+    env = dict(os.environ, PYTHONPATH=SRC)
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE], env=env, capture_output=True,
+        text=True, timeout=120, check=True,
+    ).stdout.split(maxsplit=1)
+    assert int(out[0]) >= 20, out  # every module was imported
+    assert out[1].strip() == "[]", out[1]
+
+
+def test_entry_points_default_to_cuda():
+    from repro_torch.device import resolve_device
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device()
+    with pytest.raises(ValueError, match="unsupported device"):
+        resolve_device("meta")
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
