@@ -21,7 +21,7 @@ import tempfile
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("flash_attention.cu", "flash_decode.cu")
+SOURCES = ("flash_attention.cu", "flash_decode.cu", "csr_dot.cu")
 HEADERS = ("attention_tile.cuh",)
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 LIB_NAME = "librepro_torch_kernels.so"
@@ -34,6 +34,7 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "repro_torch_flash_attention": [_P, _P, _P, _P] + [_I] * 8 + [_P],
     "repro_torch_flash_decode": [_P, _P, _P, _P, _P] + [_I] * 6 + [_P],
+    "repro_torch_csr_dot": [_P, _P, _P, _P, _I, _I, _P],
 }
 
 

@@ -16,7 +16,7 @@ import torch
 
 from repro_torch.kernels import ref
 
-LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_decode": 0}
+LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_decode": 0, "csr_dot": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HEAD_DIM = 128  # kMaxD in csrc/attention_tile.cuh
@@ -125,5 +125,45 @@ def flash_decode(q, k_cache, v_cache, cur_index):
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             cur_index.data_ptr(), out.data_ptr(), b, t, h, kh, d, code,
             torch.cuda.current_stream().cuda_stream,
+        )
+    return out
+
+
+def csr_dot(indices, values, w, *, block_b: int = 8, gather: str = "take"):
+    """Padded-CSR inner products: indices (B,K) int32 feature ids in
+    [0, D), values (B,K) float32, w (D,) float32; returns (B,) float32
+    ``Σ_k values[b,k]·w[indices[b,k]]``.  Pad entries are index 0 with
+    value 0.0.  ``gather`` ('take' | 'onehot') and ``block_b`` keep the
+    Pallas kernel's signature: both gathers are the one CUDA kernel (a
+    gather is native on the card), and rows are scheduled by the kernel."""
+    if gather not in ("take", "onehot"):
+        raise ValueError(f"csr_dot: gather must be take|onehot, got {gather!r}")
+    if block_b < 1:
+        raise ValueError(f"csr_dot: block_b must be >= 1, got {block_b}")
+    if indices.dim() != 2 or values.shape != indices.shape or w.dim() != 1:
+        raise ValueError(
+            f"csr_dot: shapes {tuple(indices.shape)}, {tuple(values.shape)}, "
+            f"{tuple(w.shape)}"
+        )
+    if _on_cpu("csr_dot", indices, values, w):
+        return ref.csr_dot(indices, values, w)
+    if indices.dtype != torch.int32 or values.dtype != torch.float32 or w.dtype != torch.float32:
+        raise TypeError(
+            f"csr_dot: takes int32 indices and float32 values and w, got "
+            f"{indices.dtype}, {values.dtype}, {w.dtype}"
+        )
+    if not (indices.is_contiguous() and values.is_contiguous() and w.is_contiguous()):
+        raise ValueError("csr_dot: inputs must be contiguous")
+    b, k = indices.shape
+    if w.numel() == 0 and k:
+        raise ValueError("csr_dot: empty weight vector")
+    out = torch.empty(b, dtype=torch.float32, device=indices.device)
+    if b == 0:
+        return out
+    with torch.cuda.device(indices.device):
+        _launch(
+            "csr_dot", "repro_torch_csr_dot",
+            indices.data_ptr(), values.data_ptr(), w.data_ptr(), out.data_ptr(),
+            b, k, torch.cuda.current_stream().cuda_stream,
         )
     return out

@@ -1,6 +1,10 @@
-"""Plain-PyTorch versions of the kernels on the serving path.
+"""Plain-PyTorch versions of the port's kernels.
 
-They follow the layer functions the JAX serve path calls, rounding where
+``csr_dot`` (the sparse-SVM path) sums in the CUDA kernel's order — the
+products, then the K/32 lane-strided slices left to right, then the 32
+partials folded in halves — so the kernel is bit-exact against it.
+
+The attention functions (the serving path) follow the layer functions the JAX serve path calls, rounding where
 those round: ``sdpa`` / ``full_attention`` (``layers/attention.py``,
 scores taken in the input dtype then f32, softmax weights cast to q's
 dtype before P·V) and ``decode_attention`` / ``_grouped_sdpa`` (grouped
@@ -13,6 +17,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30
 
@@ -69,3 +74,22 @@ def flash_decode(q, k_cache, v_cache, cur_index):
     pos = torch.arange(t, device=q.device)[None, :]
     mask = (pos <= cur)[:, None, None, None, :]  # (B,1,1,1,T)
     return _grouped_sdpa(q[:, None], k_cache, v_cache, mask)[:, 0]
+
+
+def csr_dot(indices, values, w):
+    """indices (B,K) int, values (B,K), w (D,): ``out[b] = Σ_k
+    values[b,k]·w[indices[b,k]]`` in f32, summed as csrc/csr_dot.cu sums:
+    lane l of a warp adds products l, l+32, ... left to right from 0.0,
+    then the 32 lane sums fold in halves (16, 8, 4, 2, 1)."""
+    prod = values.float() * w.float()[indices.long()]
+    b, k = prod.shape
+    slices = -(-k // 32)
+    prod = F.pad(prod, (0, 32 * slices - k)).reshape(b, slices, 32)
+    acc = prod.new_zeros(b, 32)
+    for s in range(slices):
+        acc = acc + prod[:, s]
+    width = 16
+    while width:
+        acc = acc[:, :width] + acc[:, width:]
+        width //= 2
+    return acc[:, 0]

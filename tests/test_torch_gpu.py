@@ -6,8 +6,9 @@ installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
-Tolerances are those of ``tests/test_kernels.py``: 2e-5 in f32, 2e-2 in
-bf16.
+Tolerances for attention are those of ``tests/test_kernels.py``: 2e-5
+in f32, 2e-2 in bf16.  ``csr_dot`` is bit-exact against ``ref.csr_dot``,
+which sums in the kernel's order.
 """
 import pytest
 import torch
@@ -50,3 +51,25 @@ def test_flash_decode_kernel_on_card(cuda, dt):
     got = ops.flash_decode(q, k, v, cur)
     want = ref.flash_decode(q, k, v, cur)
     torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dt], atol=TOL[dt])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gather", ["take", "onehot"])
+@pytest.mark.parametrize("b,k,d", [(10_000, 5456, 16_609_143), (1001, 77, 1000), (9, 33, 6), (1, 1, 1)])
+def test_csr_dot_kernel_on_card_bit_exact(cuda, b, k, d, gather):
+    """Bit-exact against ref.csr_dot (the kernel's summation order), on
+    padded rows with duplicate ids; one launch per non-empty call."""
+    g = torch.Generator(device=cuda).manual_seed(b + k)
+    idx = torch.randint(0, d, (b, k), generator=g, device=cuda, dtype=torch.int32)
+    val = torch.randn(b, k, generator=g, device=cuda)
+    keep = torch.randint(1, k + 1, (b, 1), generator=g, device=cuda)
+    pad = torch.arange(k, device=cuda)[None, :] >= keep
+    idx, val = idx.masked_fill(pad, 0), val.masked_fill(pad, 0.0)
+    w = torch.randn(d, generator=g, device=cuda)
+    before = ops.LAUNCHES["csr_dot"]
+    got = ops.csr_dot(idx, val, w, gather=gather)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["csr_dot"] == before + 1
+    assert torch.equal(got, ref.csr_dot(idx, val, w))
+    empty = ops.csr_dot(idx[:0], val[:0], w)
+    assert empty.shape == (0,) and ops.LAUNCHES["csr_dot"] == before + 1

@@ -1,4 +1,5 @@
-"""The port's attention kernels against the JAX package.
+"""The port's attention kernels against the JAX package, and the
+wrappers' dispatch (``csr_dot`` is held against JAX in ``test_torch_svm.py``).
 
 On the CPU the port's wrappers run their plain versions; those are held
 against the Pallas kernels (interpret mode, as ``tests/test_kernels.py``
@@ -115,8 +116,12 @@ def test_cpu_path_launches_no_kernel_and_other_devices_raise():
     k = torch.zeros(1, 4, 1, 16)
     ops.flash_attention(q, k, k)
     ops.flash_decode(q[:, 0], k, k, torch.zeros(1, dtype=torch.int32))
-    assert ops.LAUNCHES == {"flash_attention": 0, "flash_decode": 0}
+    idx, val, w = torch.zeros(3, 8, dtype=torch.int32), torch.ones(3, 8), torch.ones(5)
+    ops.csr_dot(idx, val, w)
+    assert ops.LAUNCHES == {"flash_attention": 0, "flash_decode": 0, "csr_dot": 0}
     with pytest.raises(ValueError, match="no kernel for device meta"):
         ops.flash_attention(q.to("meta"), k.to("meta"), k.to("meta"))
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        ops.csr_dot(idx.to("meta"), val.to("meta"), w.to("meta"))
     with pytest.raises(ValueError, match="several devices"):
         ops.flash_attention(q, k.to("meta"), k)
