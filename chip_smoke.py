@@ -36,11 +36,28 @@
    split, the kernel's device time and the device's busy share; then
    times ``csr_dot`` on the path's training-set inputs against its plain
    version and ``embedding_bag``.
-8. Prints ``{"kernels": [...]}``, then ``{"ok": true, "device": ...}`` as
+8. Holds ``batch_gather`` and ``batch_gather_dma`` bit-exact against
+   their plain version (f32/bf16/int32, rows_per_block 1-8,
+   rows_per_step 1/8/16, ragged B, duplicate and out-of-range ids, B = 0
+   without a launch) and times them, their plain version and
+   ``index_select`` at the DNN path's shape and a 2 GiB bandwidth shape
+   (this runs right after step 3).
+9. Trains the paper's DNN workload (Tables 6-7) through
+   ``repro_torch.dnn.convergence`` at ImageNet-1k's row count (1,281,160
+   rows of 32 f32 features held on the card, vgg-like MLP, batch 100):
+   TFIP with a 10,000 queue against LIRS, one epoch each, every batch
+   gathered by ``batch_gather``; checks the rows consumed, two launches a
+   step, the falling validation loss and LIRS's higher test accuracy;
+   replays LIRS's first epoch with ``batch_gather_dma`` against the same
+   step losses; checks one epoch of both shufflers' batches, gathered by
+   both kernels, against ``xs[idx]`` on the host; prints the host time of
+   TFIP's window shuffle and the device's busy share over 200 steps.
+10. Prints ``{"kernels": [...]}``, then ``{"ok": true, "device": ...}`` as
    the last line.  Any failed check exits non-zero before those lines.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import statistics
@@ -65,6 +82,17 @@ EPSILON_DIM = 2_000        # epsilon
 SVM_TRAIN, SVM_TEST, SVM_BLOCK = 10_000, 2_500, 1_000  # rows cut from 350,000
 SVM_NNZ = (2000, 5456)     # mean 3,728 nonzeros per row, as webspam's ~3,700
 SVM_SWEEPS, SVM_EPOCHS = 3, 2
+
+# the DNN path (paper Tables 6-7): the JAX benchmark's widths (DIM 32, 20
+# classes, batch 100, "vgg-like" hidden widths) at the row count of the
+# paper's DNN dataset, ImageNet-1k train; make_clustered_data keeps
+# n // 20 rows per class, so the table holds 1,281,160 rows
+IMAGENET_ROWS = 1_281_167
+DNN_QUEUE = 10_000        # the paper's TFIP queue (benchmarks/dnn_convergence.py:21)
+DNN_EPOCHS = 1            # reduced from E_MAX = 10 for time (a step costs ~3 ms of host)
+DNN_MODEL = "vgg-like"
+DNN_PROFILE_STEPS = 200
+GATHER_BW = (1_048_576, 512, 8_192)  # bandwidth shape: a 2 GiB f32 table, B
 
 SERVE_ARGS = ["--arch", "granite-3-8b", "--serve-mode", "continuous",
               "--max-batch", "8", "--prompt-capacity", "128", "--gen", "32",
@@ -235,6 +263,109 @@ def kernel_phase(dev):
     empty = ops.csr_dot(idx[:0], val[:0], w)
     check(empty.shape == (0,) and ops.LAUNCHES["csr_dot"] == before, "B = 0 launched a kernel")
     print("  duplicate ids accumulate; B = 0 returns (0,) without a launch")
+    return rows
+
+
+def gather_kernel_phase(dev):
+    """batch_gather (K1) and batch_gather_dma (K2) against ref.batch_gather,
+    bit for bit, then timed at the DNN path's shape and a bandwidth shape;
+    returns their kernel rows (launches are filled in by the DNN phase)."""
+    from repro_torch.kernels import ops, ref
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    print("batch_gather / batch_gather_dma vs plain version (bit-exact):")
+    cases = 0
+    for dt in (torch.float32, torch.bfloat16, torch.int32):
+        for d, b in ((40, 37), (3, 61), (4100, 9)):  # ragged B; 16/4/2-byte words; 16 KB chunks
+            full = torch.randn(1025, d, generator=g, device=dev).mul(1000).to(dt)
+            table = full[1:]  # 1024 rows, off a 16-byte boundary where d·elt is not
+            for r in (1, 2, 4, 8):
+                nb = 1024 // r
+                idx = torch.randint(-nb - 5, nb + 6, (b,), generator=g, device=dev,
+                                    dtype=torch.int32)
+                idx[:4] = idx[4]  # duplicates; the range puts ids outside the table
+                want = ref.batch_gather(table, idx, r)
+                # block_d = d: 4100 is no multiple of the default 512
+                got = {"batch_gather": ops.batch_gather(table, idx, block_d=d, rows_per_block=r)}
+                for m in (1, 8, 16):
+                    got[f"batch_gather_dma m={m}"] = ops.batch_gather_dma(
+                        table, idx, block_d=d, rows_per_block=r, rows_per_step=m)
+                torch.cuda.synchronize()
+                for name, out in got.items():
+                    cases += 1
+                    check(torch.equal(out, want),
+                          f"{name} {dt} d={d} B={b} r={r} differs from the plain version")
+    before = dict(ops.LAUNCHES)
+    for fn in (ops.batch_gather, ops.batch_gather_dma):
+        check(tuple(fn(table, idx[:0], block_d=d).shape) == (0, d), "B = 0 shape")
+    check(ops.LAUNCHES == before, "B = 0 launched a kernel")
+    print(f"  {cases} cases bit-exact (f32/bf16/int32, rows_per_block 1/2/4/8, rows_per_step "
+          f"1/8/16, ragged B, duplicate and out-of-range ids); B = 0 launches nothing")
+
+    rows = time_gathers(dev, g)
+    torch.cuda.empty_cache()  # the 2 GiB table
+    return rows
+
+
+def time_gathers(dev, g):
+    """Both gathers, their plain version and index_select at the DNN
+    path's shape (one batch's features and labels) and a bandwidth shape.
+    Each timed call gathers its own ids (one set per call of the graph),
+    so the bandwidth shape's rows are not all in the 50 MB L2."""
+    from repro_torch.kernels import ops, ref
+
+    n, d, b = 20 * (IMAGENET_ROWS // 20), 32, 100
+    x = torch.randn(n, d, generator=g, device=dev)
+    y = torch.randint(0, 20, (n, 1), generator=g, device=dev, dtype=torch.int32)
+    nbw, dbw, bbw = GATHER_BW
+    big = torch.randn(nbw, dbw, generator=g, device=dev)
+    shapes = [("DNN path: features + labels", (x, y), b, 1, 50),
+              ("bandwidth r=1", (big,), bbw, 1, 50), ("bandwidth r=8", (big,), bbw, 8, 20)]
+    rows = {}
+    for label, tables, b, r, calls in shapes:
+        nb = tables[0].shape[0] // r
+        ids = [torch.randint(0, nb, (b,), generator=g, device=dev, dtype=torch.int32)
+               for _ in range(calls)]
+
+        def timed(f):
+            it = itertools.cycle(ids)
+            return lambda: f(next(it))
+
+        def kernel(fn):
+            return lambda i: [fn(t, i, rows_per_block=r) for t in tables]
+
+        def plain(i):
+            return [ref.batch_gather(t, i, r) for t in tables]
+
+        def library(i):
+            return [t.view(nb, r * t.shape[1]).index_select(0, i) for t in tables]
+
+        want = plain(ids[0])
+        errs = []
+        for name in ("batch_gather", "batch_gather_dma"):
+            got = kernel(getattr(ops, name))(ids[0])
+            errs.append(max(check_equal(f"{label} {name}", o, w) for o, w in zip(got, want)))
+        check(all(torch.equal(a.view(-1), w.view(-1)) for a, w in zip(library(ids[0]), want)),
+              f"{label}: index_select differs from the plain version")
+        t, eager = time_ms({
+            "batch_gather": timed(kernel(ops.batch_gather)),
+            "batch_gather_dma": timed(kernel(ops.batch_gather_dma)),
+            "plain": timed(plain),
+            "library": timed(library),
+        }, n=calls)
+        nbytes = sum(2 * b * r * tb.shape[1] * tb.element_size() + 4 * b for tb in tables)
+        bnd = bound(nbytes, 0, F32_FLOPS)
+        print(f"  {label}: B={b}, tables {[tuple(tb.shape) for tb in tables]}: device ms per "
+              f"call {t}; eager ms per call {eager}; bound {bnd['bound_ms']:.6f} ms "
+              f"({nbytes} bytes)")
+        if label.startswith("DNN path"):
+            for name, err in zip(("batch_gather", "batch_gather_dma"), errs):
+                rows[name] = dict(
+                    name=name, route="cuda", source="src/repro_torch/kernels/csrc/batch_gather.cu",
+                    replaces=("src/repro/kernels/batch_gather.py:63" if name == "batch_gather"
+                              else "src/repro/kernels/batch_gather.py:144"),
+                    max_abs_err=err, ms=t[name], plain_ms=t["plain"], **bnd,
+                    library_ms=t["library"])
     return rows
 
 
@@ -556,6 +687,150 @@ def svm_phase(dev, seed=0):
     return row
 
 
+def dnn_phase(dev, seed=0):
+    """The DNN path (paper Tables 6-7) at ImageNet-1k's row count, driven
+    through dnn/convergence.py: TFIP (queue 10,000) against LIRS, every
+    batch gathered on the card by batch_gather (K1); then LIRS's first
+    epoch replayed with batch_gather_dma (K2) from the same weights.
+    Returns the launches of K1 on the main run and of K2 on the replay."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.shuffler import LIRSShuffler, TFIPShuffler
+    from repro_torch.data.device_table import DeviceTable
+    from repro_torch.dnn import convergence as C
+    from repro_torch.dnn.mlp import MLPClassifier, make_clustered_data
+    from repro_torch.kernels import ops
+
+    hidden = C.MODELS[DNN_MODEL]
+    print(f"DNN path: {IMAGENET_ROWS} rows requested, DIM {C.DIM}, {C.CLASSES} classes, "
+          f"{DNN_MODEL} {hidden}, batch {C.BATCH}, TFIP queue {DNN_QUEUE} vs LIRS, "
+          f"{DNN_EPOCHS} epochs each, seed {seed}, gather=block")
+    order_s = []
+    epoch_order = TFIPShuffler.epoch_order
+
+    def timed_order(self, epoch):  # the host time of TFIP's window shuffle
+        t = time.perf_counter()
+        out = epoch_order(self, epoch)
+        order_s.append(time.perf_counter() - t)
+        return out
+
+    runs = []
+    TFIPShuffler.epoch_order = timed_order
+    try:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = C.compute(n=IMAGENET_ROWS, queue=DNN_QUEUE, epochs=DNN_EPOCHS,
+                        models={DNN_MODEL: hidden}, seeds=(seed,), gather="block",
+                        device=dev, runs=runs)[DNN_MODEL]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+    finally:
+        TFIPShuffler.epoch_order = epoch_order
+    n = runs[0][3].rows // DNN_EPOCHS
+    steps = sum(len(e) for *_, r in runs for e in r.losses)
+    print(f"  phase wall {wall:.2f} s incl. set-up; TFIP's epoch_order on the host "
+          f"{sum(order_s):.2f} s ({', '.join(f'{x:.2f}' for x in order_s)}); launches {launches}")
+    for _, _, kind, r in runs:
+        print(f"  {kind}: {r.rows} rows in {sum(map(len, r.losses))} steps, {r.seconds:.2f} s, "
+              f"{sum(map(len, r.losses)) / r.seconds:.1f} steps/s; validation loss by epoch "
+              f"{r.val_loss}")
+    print(f"  result: {json.dumps(res)}")
+
+    xs, ys, centers = make_clustered_data(IMAGENET_ROWS, C.DIM, C.CLASSES, seed=42,
+                                          class_sorted=True, spread=1.0)
+    xval, yval, _ = make_clustered_data(2000, C.DIM, C.CLASSES, seed=7, class_sorted=False,
+                                        centers=centers)
+    check(len(xs) == n == 20 * (IMAGENET_ROWS // 20), f"table of {len(xs)} rows, runs of {n} per epoch")
+    # TFIP's class-skewed batches can leave its validation loss above where
+    # it started, or drive it past f32's range (the reference does the same
+    # on the same data: the class read last dominates); LIRS's must fall,
+    # and reach TFIP's minimum, where that is finite, within the epochs
+    # (Table 6's direction)
+    for _, _, kind, r in runs:
+        check(r.rows == DNN_EPOCHS * n, f"{kind} consumed {r.rows} rows, want {DNN_EPOCHS * n}")
+        start = MLPClassifier(C.DIM, C.CLASSES, hidden, device=dev, params=r.init).loss(xval, yval)
+        print(f"  {kind}: validation loss {start:.4f} before training, {r.val_loss} after each "
+              f"epoch; step losses finite in {sum(np.isfinite(e).sum() for e in r.losses)} of "
+              f"{sum(map(len, r.losses))} steps")
+        if kind == "lirs":
+            check(all(np.isfinite(r.val_loss)) and r.val_loss[-1] < start,
+                  f"LIRS's validation loss {r.val_loss} did not fall from {start:.4f}")
+    if np.isfinite(res["val_traj_tfip"][-1]):  # np.minimum.accumulate keeps a NaN, as in JAX
+        check(res["epochs_lirs_mean"] <= DNN_EPOCHS,
+              f"LIRS did not reach TFIP's minimum validation loss in {DNN_EPOCHS} epochs")
+    check(launches["batch_gather"] == 2 * steps,
+          f"batch_gather launched {launches['batch_gather']} times for {steps} steps")
+    check(launches["batch_gather_dma"] == 0, "batch_gather_dma launched on the block run")
+    check(res["acc_lirs"] > res["acc_tfip"],
+          f"LIRS test accuracy {res['acc_lirs']} not above TFIP's {res['acc_tfip']}")
+
+    # LIRS's first epoch again with batch_gather_dma, from the same weights
+    lirs = runs[1][3]
+    dma = DeviceTable(xs, ys, dev, gather="dma")
+    ops.reset_launch_counts()
+    replay = C.train(dma, hidden, LIRSShuffler(n, C.BATCH, seed=seed), 1, seed,
+                     init=lambda dims, s: lirs.init)
+    torch.cuda.synchronize()
+    dma_launches = ops.LAUNCHES["batch_gather_dma"]
+    check(ops.LAUNCHES["batch_gather"] == 0, "batch_gather launched on the dma replay")
+    check(dma_launches == 2 * len(replay.losses[0]),
+          f"batch_gather_dma launched {dma_launches} times for {len(replay.losses[0])} steps")
+    # the same bytes in, the same kernels and sums after: identical losses
+    diff = max(abs(a - b) for a, b in zip(replay.losses[0], lirs.losses[0]))
+    check(replay.losses[0] == lirs.losses[0],
+          f"dma replay's step losses differ from the block run's (max {diff:.3e})")
+    print(f"  dma replay of LIRS epoch 0: {len(replay.losses[0])} steps, {replay.seconds:.2f} s, "
+          f"step losses identical to the block run's; launches {dma_launches}")
+
+    # one epoch of each shuffler's batches, gathered by both kernels,
+    # against xs[idx] taken on the host
+    block = DeviceTable(xs, ys, dev, gather="block")
+    for sh in (LIRSShuffler(n, C.BATCH, seed=seed),
+               TFIPShuffler(n, C.BATCH, queue_size=DNN_QUEUE, seed=seed)):
+        batches = list(sh.epoch_batches(0))
+        check(len(batches) == -(-n // C.BATCH) and len(batches[-1]) == (n % C.BATCH or C.BATCH),
+              f"{len(batches)} batches in an epoch of {n} rows")
+        order = np.concatenate(batches)
+        want = (torch.from_numpy(xs[order]).to(dev), torch.from_numpy(ys[order]).to(dev))
+        for table in (block, dma):
+            got = [table.batch(idx) for idx in batches]
+            check(torch.equal(torch.cat([x for x, _ in got]), want[0])
+                  and torch.equal(torch.cat([y for _, y in got]), want[1]),
+                  f"{type(sh).__name__} batches by {table.gather} differ from xs[idx]")
+    print(f"  one epoch of LIRS and of TFIP batches ({len(batches)}, the last of "
+          f"{len(batches[-1])} rows), gathered by both kernels, equal xs[idx], ys[idx] taken "
+          "on the host")
+
+    # device busy share over a steady window of LIRS steps
+    model = MLPClassifier(C.DIM, C.CLASSES, hidden, device=dev, params=lirs.init)
+    batches = LIRSShuffler(n, C.BATCH, seed=seed + 1).epoch_batches(0)
+    for _ in range(20):
+        model.train_batch(*block.batch(next(batches)))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(DNN_PROFILE_STEPS):
+            model.train_batch(*block.batch(next(batches)))
+        torch.cuda.synchronize()
+        win = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    check(bool(events), "the profiler recorded no device activity")
+    busy_us = sum(e.self_device_time_total for e in events)
+    calls = sum(e.count for e in events)
+    print(f"  profile of {DNN_PROFILE_STEPS} LIRS steps: wall {1e3 * win / DNN_PROFILE_STEPS:.3f} "
+          f"ms/step, device busy {1e-3 * busy_us / DNN_PROFILE_STEPS:.3f} ms/step, "
+          f"{calls / DNN_PROFILE_STEPS:.1f} device ops/step, busy share {1e-6 * busy_us / win:.3f}")
+    top = sorted(events, key=lambda e: -e.self_device_time_total)
+    for e in top[:8] + [e for e in top[8:] if "gather" in e.key]:
+        print(f"    {e.self_device_time_total / DNN_PROFILE_STEPS:8.2f} us/step "
+              f"{e.count / DNN_PROFILE_STEPS:5.1f} calls/step  {e.key[:90]}")
+    return {"batch_gather": launches["batch_gather"], "batch_gather_dma": dma_launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -581,6 +856,7 @@ def main() -> int:
             print("  ptxas:", line.strip())
 
     rows = kernel_phase(dev)
+    gathers = gather_kernel_phase(dev)
     model_phase(dev)
     linear_svm_phase(dev)
     launches = serve_phase()
@@ -588,6 +864,10 @@ def main() -> int:
     for row in rows:
         row["launches"] = launches[row["name"]]
     rows.append(svm_phase(dev))
+    t0 = time.perf_counter()
+    for name, count in dnn_phase(dev).items():
+        rows.append(dict(gathers[name], launches=count))
+    print(f"DNN phase {time.perf_counter() - t0:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in rows]}))

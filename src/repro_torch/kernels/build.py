@@ -21,7 +21,7 @@ import tempfile
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("flash_attention.cu", "flash_decode.cu", "csr_dot.cu")
+SOURCES = ("flash_attention.cu", "flash_decode.cu", "csr_dot.cu", "batch_gather.cu")
 HEADERS = ("attention_tile.cuh",)
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 LIB_NAME = "librepro_torch_kernels.so"
@@ -30,11 +30,14 @@ NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # name -> argtypes of the extern "C" entry points (see the .cu files)
 _SIGNATURES = {
     "repro_torch_flash_attention": [_P, _P, _P, _P] + [_I] * 8 + [_P],
     "repro_torch_flash_decode": [_P, _P, _P, _P, _P] + [_I] * 6 + [_P],
     "repro_torch_csr_dot": [_P, _P, _P, _P, _I, _I, _P],
+    "repro_torch_batch_gather": [_P, _P, _P, _L, _L, _L, _P],
+    "repro_torch_batch_gather_dma": [_P, _P, _P, _L, _L, _L, _I, _P],
 }
 
 

@@ -16,11 +16,15 @@ import torch
 
 from repro_torch.kernels import ref
 
-LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_decode": 0, "csr_dot": 0}
+LAUNCHES: Dict[str, int] = {
+    "flash_attention": 0, "flash_decode": 0, "csr_dot": 0,
+    "batch_gather": 0, "batch_gather_dma": 0,
+}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HEAD_DIM = 128  # kMaxD in csrc/attention_tile.cuh
 _MAX_GROUP = 16      # kMaxGroup in csrc/flash_decode.cu
+_GATHER_DTYPES = (torch.float32, torch.bfloat16, torch.int32)
 
 
 def reset_launch_counts() -> None:
@@ -167,3 +171,69 @@ def csr_dot(indices, values, w, *, block_b: int = 8, gather: str = "take"):
             b, k, torch.cuda.current_stream().cuda_stream,
         )
     return out
+
+
+def _gather_args(name, table, indices, block_d: int, rows_per_block: int):
+    """Checks shared by both gathers (the Pallas wrappers' asserts, plus
+    dtype); returns the indices as int32, as ``indices.astype(jnp.int32)``."""
+    if table.dim() != 2 or indices.dim() != 1:
+        raise ValueError(f"{name}: table (N,D) and indices (B,), got "
+                         f"{tuple(table.shape)}, {tuple(indices.shape)}")
+    if table.dtype not in _GATHER_DTYPES:
+        raise TypeError(f"{name}: takes float32/bfloat16/int32 tables, got {table.dtype}")
+    if indices.dtype.is_floating_point or indices.dtype.is_complex or indices.dtype == torch.bool:
+        raise TypeError(f"{name}: indices must be integers, got {indices.dtype}")
+    n, d = table.shape
+    r = rows_per_block
+    if r < 1 or n % r:
+        raise ValueError(f"{name}: {n} rows do not split into blocks of {r}")
+    bd = min(block_d, d)
+    if bd < 1 or d % bd:
+        raise ValueError(f"{name}: width {d} is not a multiple of block_d {bd}")
+    if n == 0 and indices.numel():
+        raise ValueError(f"{name}: gather from an empty table")
+    return indices.to(torch.int32).contiguous()
+
+
+def _gather(name, fn, table, indices, rows_per_block, *extra):
+    """Launch one of the gather kernels (or the plain version on the CPU);
+    ``B = 0`` returns ``(0, D)`` without a launch."""
+    n, d = table.shape
+    r = rows_per_block
+    if _on_cpu(name, table, indices):
+        return ref.batch_gather(table, indices, r)
+    if not table.is_contiguous():
+        raise ValueError(f"{name}: table must be contiguous")
+    out = torch.empty(indices.shape[0] * r, d, dtype=table.dtype, device=table.device)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(table.device):
+        _launch(
+            name, fn, table.data_ptr(), indices.data_ptr(), out.data_ptr(),
+            n // r, r * d * table.element_size(), indices.shape[0], *extra,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    return out
+
+
+def batch_gather(table, indices, *, block_d: int = 512, rows_per_block: int = 1):
+    """The LIRS gather: table (N, D) f32/bf16/int32, indices (B,) block
+    ids; returns (B·r, D), block i the ``r = rows_per_block`` rows from
+    ``indices[i]·r``.  Out-of-range ids follow ``ref.batch_gather`` (a
+    negative id wraps once, then clamps).  ``block_d`` keeps the Pallas
+    kernel's signature and its divisibility check; the CUDA kernel copies
+    whole blocks."""
+    idx = _gather_args("batch_gather", table, indices, block_d, rows_per_block)
+    return _gather("batch_gather", "repro_torch_batch_gather", table, idx, rows_per_block)
+
+
+def batch_gather_dma(table, indices, *, block_d: int = 512, rows_per_block: int = 1,
+                     rows_per_step: int = 8):
+    """``batch_gather``'s output bit for bit, ``rows_per_step`` indices per
+    thread block staged through a two-slot shared-memory ring
+    (``cp.async``), as the Pallas kernel stages them through VMEM."""
+    if rows_per_step < 1:
+        raise ValueError(f"batch_gather_dma: rows_per_step must be >= 1, got {rows_per_step}")
+    idx = _gather_args("batch_gather_dma", table, indices, block_d, rows_per_block)
+    return _gather("batch_gather_dma", "repro_torch_batch_gather_dma", table, idx,
+                   rows_per_block, rows_per_step)

@@ -1,5 +1,9 @@
 """Plain-PyTorch versions of the port's kernels.
 
+``batch_gather`` (the DNN path's LIRS gather) copies bytes, so the
+kernels are bit-exact against it; it follows ``batch_gather_ref`` and
+normalises out-of-range block ids as the JAX gathers do.
+
 ``csr_dot`` (the sparse-SVM path) sums in the CUDA kernel's order — the
 products, then the K/32 lane-strided slices left to right, then the 32
 partials folded in halves — so the kernel is bit-exact against it.
@@ -20,6 +24,20 @@ import torch
 import torch.nn.functional as F
 
 NEG_INF = -1e30
+
+
+def batch_gather(table, indices, rows_per_block: int = 1):
+    """table (N, D), indices (B,) block ids → (B·r, D): block i is rows
+    ``idx·r .. idx·r + r − 1`` of the table, ``r = rows_per_block``.  As
+    in ``batch_gather_ref`` (and the Pallas kernels, which read through
+    clamped slices), a negative id has ``N / r`` added once and the id is
+    then clamped to ``[0, N / r − 1]``; plain torch indexing would raise."""
+    n, d = table.shape
+    r = rows_per_block
+    nb = n // r
+    i = indices.to(torch.int32).long()
+    i = torch.where(i < 0, i + nb, i).clamp(0, nb - 1)
+    return table.reshape(nb, r, d)[i].reshape(indices.shape[0] * r, d)
 
 
 def _expand_kv(q, k, v):

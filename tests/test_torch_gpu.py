@@ -8,7 +8,8 @@ installed:
 
 Tolerances for attention are those of ``tests/test_kernels.py``: 2e-5
 in f32, 2e-2 in bf16.  ``csr_dot`` is bit-exact against ``ref.csr_dot``,
-which sums in the kernel's order.
+which sums in the kernel's order; both gathers copy bytes and are
+bit-exact against ``ref.batch_gather``.
 """
 import pytest
 import torch
@@ -73,3 +74,44 @@ def test_csr_dot_kernel_on_card_bit_exact(cuda, b, k, d, gather):
     assert torch.equal(got, ref.csr_dot(idx, val, w))
     empty = ops.csr_dot(idx[:0], val[:0], w)
     assert empty.shape == (0,) and ops.LAUNCHES["csr_dot"] == before + 1
+
+
+# (n, d, b, rows_per_block, rows_per_step, offset rows): the DNN path's
+# feature and label tables (ragged last batch of 60), page blocks, blocks
+# of several 16 KB ring chunks, widths that leave 4- or 2-byte words, and
+# a table that starts `off` rows into its storage, off a 16-byte boundary
+GATHER_CASES = [
+    (1_281_160, 32, 100, 1, 8, 0), (1_281_160, 1, 60, 1, 8, 0), (4096, 512, 1001, 8, 16, 0),
+    (4096, 512, 37, 2, 1, 0), (256, 4100, 9, 2, 3, 0), (256, 4099, 9, 1, 8, 0),
+    (512, 3, 77, 1, 8, 1), (512, 42, 33, 4, 16, 1),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16, torch.int32])
+@pytest.mark.parametrize("n,d,b,r,m,off", GATHER_CASES)
+def test_batch_gather_kernels_on_card_bit_exact(cuda, n, d, b, r, m, off, dt):
+    """Both gathers against ref.batch_gather, with duplicate ids and ids
+    outside the table; one launch each per non-empty call, none for B = 0."""
+    g = torch.Generator(device=cuda).manual_seed(n + d + b)
+    full = torch.randint(-2**31, 2**31 - 1, (n + off, d), generator=g, device=cuda,
+                         dtype=torch.int32)
+    if dt != torch.int32:
+        full = torch.randn(n + off, d, generator=g, device=cuda).to(dt)
+    table = full[off:]
+    nb = n // r
+    idx = torch.randint(-nb - 3, nb + 4, (b,), generator=g, device=cuda, dtype=torch.int32)
+    idx[:3] = idx[3]
+    want = ref.batch_gather(table, idx, r)
+    before = dict(ops.LAUNCHES)
+    # block_d = d: some widths are no multiple of the default 512
+    got = ops.batch_gather(table, idx, block_d=d, rows_per_block=r)
+    got_dma = ops.batch_gather_dma(table, idx, block_d=d, rows_per_block=r, rows_per_step=m)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(got_dma, want)
+    assert ops.LAUNCHES["batch_gather"] == before["batch_gather"] + 1
+    assert ops.LAUNCHES["batch_gather_dma"] == before["batch_gather_dma"] + 1
+    for fn in (ops.batch_gather, ops.batch_gather_dma):
+        assert tuple(fn(table, idx[:0], block_d=d, rows_per_block=r).shape) == (0, d)
+    assert ops.LAUNCHES["batch_gather"] == before["batch_gather"] + 1
+    assert ops.LAUNCHES["batch_gather_dma"] == before["batch_gather_dma"] + 1

@@ -118,7 +118,12 @@ def test_cpu_path_launches_no_kernel_and_other_devices_raise():
     ops.flash_decode(q[:, 0], k, k, torch.zeros(1, dtype=torch.int32))
     idx, val, w = torch.zeros(3, 8, dtype=torch.int32), torch.ones(3, 8), torch.ones(5)
     ops.csr_dot(idx, val, w)
-    assert ops.LAUNCHES == {"flash_attention": 0, "flash_decode": 0, "csr_dot": 0}
+    ops.batch_gather(val, idx[0])
+    ops.batch_gather_dma(val, idx[0])
+    assert ops.LAUNCHES == {"flash_attention": 0, "flash_decode": 0, "csr_dot": 0,
+                            "batch_gather": 0, "batch_gather_dma": 0}
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        ops.batch_gather(val.to("meta"), idx[0].to("meta"))
     with pytest.raises(ValueError, match="no kernel for device meta"):
         ops.flash_attention(q.to("meta"), k.to("meta"), k.to("meta"))
     with pytest.raises(ValueError, match="no kernel for device meta"):
