@@ -52,7 +52,22 @@
    step losses; checks one epoch of both shufflers' batches, gathered by
    both kernels, against ``xs[idx]`` on the host; prints the host time of
    TFIP's window shuffle and the device's busy share over 200 steps.
-10. Prints ``{"kernels": [...]}``, then ``{"ok": true, "device": ...}`` as
+10. Holds ``rglru_scan`` and its backward ``rglru_scan_bwd`` bit-exact
+   (``torch.equal``) against their plain versions at the training path's
+   shape (1, 4096, 2560), a ragged one and T = 1, and times each
+   direction against its plain loop (no single PyTorch call computes a
+   linear recurrence, so there is no library time).  Then one train step
+   of smoke recurrentgemma (float32) on the card against the same step on
+   the CPU: loss, gradient norm and updated parameters (this runs after
+   step 4's model check).
+11. Trains recurrentgemma-2b at full width and depth through
+   ``repro_torch.launch.train`` (seq 4096, batch 1, 8 steps, AdamW, remat
+   per pattern period): checks 8 finite losses and 36 ``rglru_scan`` and
+   18 ``rglru_scan_bwd`` launches a step (18 RG-LRU layers, each scan run
+   forward and again in the recompute); prints Eq. 1's numbers, the step
+   times and the peak memory; then profiles two steady steps (device time
+   by kernel, busy share).
+12. Prints ``{"kernels": [...]}``, then ``{"ok": true, "device": ...}`` as
    the last line.  Any failed check exits non-zero before those lines.
 """
 from __future__ import annotations
@@ -93,6 +108,13 @@ DNN_EPOCHS = 1            # reduced from E_MAX = 10 for time (a step costs ~3 ms
 DNN_MODEL = "vgg-like"
 DNN_PROFILE_STEPS = 200
 GATHER_BW = (1_048_576, 512, 8_192)  # bandwidth shape: a 2 GiB f32 table, B
+
+# the LM training path: recurrentgemma-2b at published width and depth;
+# seq 4096 is twice the local-attention window, so the chunked branch runs
+TRAIN_ARGS = ["--arch", "recurrentgemma-2b", "--seq-len", "4096", "--batch", "1",
+              "--num-records", "64", "--epochs", "1", "--steps", "8", "--seed", "0",
+              "--device", "cuda"]
+SCAN_SHAPES = ((1, 4096, 2560), (3, 1000, 2560 + 96), (2, 1, 2560))  # the path's first
 
 SERVE_ARGS = ["--arch", "granite-3-8b", "--serve-mode", "continuous",
               "--max-batch", "8", "--prompt-capacity", "128", "--gen", "32",
@@ -384,6 +406,54 @@ def bound(nbytes, flops, peak_flops):
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
+def rglru_kernel_phase(dev):
+    """rglru_scan (K5) and its reverse-time backward against their plain
+    versions, bit for bit, then timed at the training path's shape;
+    returns their kernel rows (launches are filled in by the training
+    phase)."""
+    from repro_torch.kernels import ops, ref
+
+    g = torch.Generator(device=dev).manual_seed(8)
+    print("rglru_scan / rglru_scan_bwd vs plain versions (bit-exact):")
+    inputs = {}
+    for shape in SCAN_SHAPES:
+        a = torch.rand(shape, generator=g, device=dev) * 0.4 + 0.6  # decays as the layer's
+        x = torch.randn(shape, generator=g, device=dev)
+        dh = torch.randn(shape, generator=g, device=dev)
+        h = ops.rglru_scan(a, x)
+        dx, da = ops.rglru_scan_bwd(a, h, dh)
+        torch.cuda.synchronize()
+        want_h = ref.rglru_scan(a, x)
+        want_dx, want_da = ref.rglru_scan_bwd(a, want_h, dh)
+        errs = {"rglru_scan": check_equal(f"forward {shape}", h, want_h),
+                "rglru_scan_bwd": max(check_equal(f"backward dx {shape}", dx, want_dx),
+                                      check_equal(f"backward da {shape}", da, want_da))}
+        if not inputs:
+            inputs = dict(a=a, x=x, dh=dh, h=h, errs=errs)
+    a, x, dh, h = (inputs[k] for k in ("a", "x", "dh", "h"))
+    b, t, w = a.shape
+    rows = {}
+    for name, kernel, plain, nbytes in (
+        ("rglru_scan", lambda: ops.rglru_scan(a, x), lambda: ref.rglru_scan(a, x),
+         3 * b * t * w * 4),  # a, x in; h out
+        ("rglru_scan_bwd", lambda: ops.rglru_scan_bwd(a, h, dh),
+         lambda: ref.rglru_scan_bwd(a, h, dh), 5 * b * t * w * 4),  # a, h, dh in; dx, da out
+    ):
+        tk, ek = time_ms({"kernel": kernel}, n=20)
+        tp, ep = time_ms({"plain": plain}, n=1)  # a graph of T steps' small ops
+        flops = (2 if name == "rglru_scan" else 3) * b * t * w
+        rows[name] = dict(
+            name=name, route="cuda", source="src/repro_torch/kernels/csrc/rglru_scan.cu",
+            replaces="src/repro/kernels/rglru_scan.py:58", max_abs_err=inputs["errs"][name],
+            ms=tk["kernel"], plain_ms=tp["plain"], **bound(nbytes, flops, F32_FLOPS),
+            library_ms=None)
+        print(f"  {name} {tuple(a.shape)}: device ms per call kernel {tk['kernel']:.6f}, plain "
+              f"{tp['plain']:.3f}; eager ms per call kernel {ek['kernel']:.6f}, plain "
+              f"{ep['plain']:.3f}; bound {rows[name]['bound_ms']:.6f} ms ({nbytes} bytes, "
+              f"{rows[name]['bound_by']}); no PyTorch call computes a linear recurrence")
+    return rows
+
+
 # ---------------------------------------------------- model, small size
 
 
@@ -413,6 +483,68 @@ def model_phase(dev):
         want, got = outs["cpu"][i], outs["gpu"][i].cpu()
         check(got.shape == want.shape, f"{what}: shape {got.shape} vs {want.shape}")
         compare(f"{what} {tuple(got.shape)}", got, want, 1e-4)
+
+
+def train_step_phase(dev):
+    """One train step (loss, autograd, AdamW) of smoke recurrentgemma in
+    float32 on the card (the scan kernels) against the same step on the
+    CPU (their plain versions), from the same weights and batch."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.train.optimizer import AdamW, AdamWConfig
+    from repro_torch.train.steps import init_train_state, make_train_step
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    cfg = get_config("recurrentgemma-2b", smoke=True).replace(dtype="float32")
+    print("train step on the card vs on the CPU (smoke recurrentgemma, float32, seq 32 > "
+          f"window {cfg.local_window}):")
+    opt_cfg = AdamWConfig(lr=3e-3, warmup_steps=2)
+    toks = torch.randint(0, cfg.vocab_size, (2, 33), generator=torch.Generator().manual_seed(6))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    init = init_train_state(cfg, torch.Generator().manual_seed(1), AdamW(opt_cfg), "cpu")
+    outs = {}
+    for d in ("cpu", dev):
+        state = tree_map(lambda x: x.clone().to(d), init)
+        before = dict(ops.LAUNCHES)
+        state, out = make_train_step(cfg, AdamW(opt_cfg))(state, {k: v.to(d) for k, v in batch.items()})
+        torch.cuda.synchronize()
+        outs[d] = (state, {k: float(v) for k, v in out.items()},
+                   {k: ops.LAUNCHES[k] - before[k] for k in before})
+    (cs, co, _), (gs, go, glaunch) = outs["cpu"], outs[dev]
+    rg = sum(p.count("rglru") * r for p, r in cfg.stages)
+    check(glaunch["rglru_scan"] == 2 * rg and glaunch["rglru_scan_bwd"] == rg,
+          f"scan launches {glaunch} for {rg} RG-LRU layers")
+    for k, tol in (("loss", 1e-5), ("grad_norm", 1e-4)):
+        err = abs(go[k] - co[k]) / abs(co[k])
+        print(f"  {k}: card {go[k]:.7f}, CPU {co[k]:.7f}, relative error {err:.2e} (tol {tol:g})")
+        check(err <= tol, f"train step {k} differs")
+    # The step's clipped gradients, from the first moments (mu = (1 - b1)·g
+    # after one step): each leaf to 1e-4 of its largest entry, as the CPU
+    # tests hold the port's gradients to JAX's.  The weights then differ by
+    # what Adam's first step, lr·m̂/(sqrt(v̂) + eps), makes of the two
+    # gradients (near g = 0 it magnifies their last digits): each weight is
+    # held to that propagated difference + 1e-6 + 1e-5·|p|.
+    c = opt_cfg
+    grad_err, p_err, worst = 0.0, 0.0, 0.0
+    for pg, pc, mg, mc, vg, vc in zip(
+            tree_leaves(gs["params"]), tree_leaves(cs["params"]),
+            tree_leaves(gs["opt"]["mu"]), tree_leaves(cs["opt"]["mu"]),
+            tree_leaves(gs["opt"]["nu"]), tree_leaves(cs["opt"]["nu"])):
+        pg, mg, vg = pg.cpu(), mg.cpu(), vg.cpu()
+        e = float((mg - mc).abs().max()) / max(float(mc.abs().max()), 1e-30)
+        grad_err = max(grad_err, e)
+        step_g = (mg / (1 - c.b1)) / ((vg / (1 - c.b2)).sqrt() + c.eps)
+        step_c = (mc / (1 - c.b1)) / ((vc / (1 - c.b2)).sqrt() + c.eps)
+        allowed = co["lr"] * (step_g - step_c).abs() + 1e-6 + 1e-5 * pc.abs()
+        diff = (pg - pc).abs()
+        p_err = max(p_err, float(diff.max()))
+        worst = max(worst, float((diff / allowed).max()))
+    print(f"  gradients (first moments): max error {grad_err:.2e} of each leaf's largest entry "
+          f"(tol 1e-4); updated parameters: max_abs_err {p_err:.3e}, at most {worst:.3f} of the "
+          f"propagated tolerance; scan launches {glaunch['rglru_scan']} forward, "
+          f"{glaunch['rglru_scan_bwd']} backward for {rg} RG-LRU layers")
+    check(grad_err <= 1e-4, "train step gradients differ")
+    check(worst <= 1.0, "updated parameters differ")
 
 
 def linear_svm_phase(dev, steps=4):
@@ -831,6 +963,111 @@ def dnn_phase(dev, seed=0):
     return {"batch_gather": launches["batch_gather"], "batch_gather_dma": dma_launches}
 
 
+def train_phase(dev):
+    """The LM training path at recurrentgemma-2b's full width and depth,
+    through the launcher; returns the main run's launches."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    gc.collect()
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks
+    torch.cuda.reset_peak_memory_stats(dev)
+    print("training recurrentgemma-2b at full width:", " ".join(TRAIN_ARGS))
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    summary = train.main(TRAIN_ARGS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    cfg = get_config("recurrentgemma-2b")
+    rg = sum(p.count("rglru") * r for p, r in cfg.stages)  # 18
+    steps = summary["steps"]
+    secs = summary["step_seconds"]
+    print(f"  run incl. init and data {wall:.1f} s; {cfg.num_layers} layers; launches {launches}")
+    print(f"  losses {summary['losses']}")
+    print(f"  step seconds {[round(x, 4) for x in secs]}; median of steps 2-{steps} "
+          f"{statistics.median(secs[1:]):.4f} s ({4096 / statistics.median(secs[1:]):.0f} tokens/s)")
+    print(f"  Eq. 1: t_load {summary['t_load']:.4f} s, t_comp {summary['t_comp']:.4f} s, t_overlap "
+          f"{summary['t_overlap']:.4f} s, t_unhidden_load {summary['t_unhidden_load']:.4f} s, "
+          f"effective {summary['effective_time']:.4f} s; peak memory "
+          f"{summary['peak_memory_gib']:.2f} GiB")
+    check(steps == 8, f"{steps} steps, want 8")
+    check(len(summary["losses"]) == 8 and all(np.isfinite(summary["losses"])),
+          f"losses {summary['losses']}")
+    check(launches["rglru_scan"] == steps * 2 * rg,
+          f"rglru_scan launched {launches['rglru_scan']} times, want {steps * 2 * rg}")
+    check(launches["rglru_scan_bwd"] == steps * rg,
+          f"rglru_scan_bwd launched {launches['rglru_scan_bwd']} times, want {steps * rg}")
+    return launches
+
+
+def train_profile_phase(dev, steps=2):
+    """Where a full-width training step's time goes: after one warm step,
+    ``steps`` steps under torch.profiler (device time by kernel, busy
+    share).  Runs after the main path, so its launches are not counted
+    there."""
+    import gc
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.train.optimizer import AdamW, AdamWConfig
+    from repro_torch.train.steps import init_train_state, make_train_step
+    from repro_torch.utils.tree import tree_leaves
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("recurrentgemma-2b")
+    opt = AdamW(AdamWConfig(lr=1e-3, warmup_steps=10))
+    state = init_train_state(cfg, torch.Generator(device=dev).manual_seed(1), opt, dev)
+    n_params = sum(p.numel() for p in tree_leaves(state["params"]))
+    step = make_train_step(cfg, opt)
+    g = torch.Generator(device=dev).manual_seed(2)
+    toks = torch.randint(0, cfg.vocab_size, (1, 4097), generator=g, device=dev, dtype=torch.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    state, out = step(state, batch)
+    float(out["loss"])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, out = step(state, batch)
+            float(out["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    check(bool(events), "the profiler recorded no device activity")
+    busy_us = sum(e.self_device_time_total for e in events)
+    calls = sum(e.count for e in events)
+    print(f"profile of {steps} training steps (full width, {n_params:,} parameters, seq 4096): wall "
+          f"{1e3 * wall / steps:.1f} ms/step, device busy {1e-3 * busy_us / steps:.1f} ms/step, "
+          f"{calls / steps:.0f} device ops/step, busy share {1e-6 * busy_us / wall:.3f}")
+    classes = {"GEMM": ("nvjet", "gemm", "cutlass", "xmma"), "rglru_scan": ("rglru_scan",),
+               "softmax/reduce": ("softmax", "reduce")}
+    split = dict.fromkeys(classes, 0.0)
+    split["other elementwise and copies"] = 0.0
+    for e in events:
+        name = next((c for c, keys in classes.items() if any(k in e.key.lower() for k in keys)),
+                    "other elementwise and copies")
+        split[name] += e.self_device_time_total
+    print("  device ms/step by class: " + ", ".join(
+        f"{c} {v / steps / 1e3:.1f} ({v / busy_us:.3f})" for c, v in split.items()))
+    top = sorted(events, key=lambda e: -e.self_device_time_total)
+    for e in top[:12] + [e for e in top[12:] if "rglru" in e.key]:
+        print(f"  {e.self_device_time_total / steps / 1e3:9.3f} ms/step "
+              f"{e.count // steps:5d} calls/step  {e.key[:100]}")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -857,7 +1094,9 @@ def main() -> int:
 
     rows = kernel_phase(dev)
     gathers = gather_kernel_phase(dev)
+    scans = rglru_kernel_phase(dev)
     model_phase(dev)
+    train_step_phase(dev)
     linear_svm_phase(dev)
     launches = serve_phase()
     profile_phase(dev)
@@ -868,6 +1107,12 @@ def main() -> int:
     for name, count in dnn_phase(dev).items():
         rows.append(dict(gathers[name], launches=count))
     print(f"DNN phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    train_launches = train_phase(dev)
+    print(f"training phase {time.perf_counter() - t0:.1f} s")
+    train_profile_phase(dev)
+    for name in ("rglru_scan", "rglru_scan_bwd"):
+        rows.append(dict(scans[name], launches=train_launches[name]))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in rows]}))

@@ -13,6 +13,7 @@ from repro_torch.models.config import ModelConfig
 
 _MODULES = {
     "granite-3-8b": "repro_torch.configs.granite_3_8b",
+    "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
 }
 
 ARCH_IDS: List[str] = list(_MODULES)

@@ -21,7 +21,8 @@ import tempfile
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("flash_attention.cu", "flash_decode.cu", "csr_dot.cu", "batch_gather.cu")
+SOURCES = ("flash_attention.cu", "flash_decode.cu", "csr_dot.cu", "batch_gather.cu",
+           "rglru_scan.cu")
 HEADERS = ("attention_tile.cuh",)
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 LIB_NAME = "librepro_torch_kernels.so"
@@ -38,6 +39,8 @@ _SIGNATURES = {
     "repro_torch_csr_dot": [_P, _P, _P, _P, _I, _I, _P],
     "repro_torch_batch_gather": [_P, _P, _P, _L, _L, _L, _P],
     "repro_torch_batch_gather_dma": [_P, _P, _P, _L, _L, _L, _I, _P],
+    "repro_torch_rglru_scan": [_P, _P, _P, _I, _I, _I, _P],
+    "repro_torch_rglru_scan_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 

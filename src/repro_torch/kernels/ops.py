@@ -19,12 +19,14 @@ from repro_torch.kernels import ref
 LAUNCHES: Dict[str, int] = {
     "flash_attention": 0, "flash_decode": 0, "csr_dot": 0,
     "batch_gather": 0, "batch_gather_dma": 0,
+    "rglru_scan": 0, "rglru_scan_bwd": 0,
 }
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HEAD_DIM = 128  # kMaxD in csrc/attention_tile.cuh
 _MAX_GROUP = 16      # kMaxGroup in csrc/flash_decode.cu
 _GATHER_DTYPES = (torch.float32, torch.bfloat16, torch.int32)
+_MAX_GRID_Y = 65535  # rglru_scan's grid.y is the batch
 
 
 def reset_launch_counts() -> None:
@@ -237,3 +239,69 @@ def batch_gather_dma(table, indices, *, block_d: int = 512, rows_per_block: int 
     idx = _gather_args("batch_gather_dma", table, indices, block_d, rows_per_block)
     return _gather("batch_gather_dma", "repro_torch_batch_gather_dma", table, idx,
                    rows_per_block, rows_per_step)
+
+
+def _check_scan_shapes(name, *tensors) -> None:
+    shape = tensors[0].shape
+    if len(shape) != 3 or any(t.shape != shape for t in tensors):
+        raise ValueError(f"{name}: operands must share one (B,T,W) shape, got "
+                         f"{[tuple(t.shape) for t in tensors]}")
+
+
+def _scan_launch(name, fn, ins, outs):
+    """Launch a scan kernel on contiguous f32 operands (the wrappers cast
+    as the Pallas wrapper does) into f32 outputs."""
+    b, t, w = ins[0].shape
+    if b > _MAX_GRID_Y:
+        raise ValueError(f"{name}: batch {b} exceeds {_MAX_GRID_Y}")
+    if outs[0].numel() == 0:
+        return
+    with torch.cuda.device(ins[0].device):
+        _launch(name, fn, *(x.data_ptr() for x in ins + outs), b, t, w,
+                torch.cuda.current_stream().cuda_stream)
+
+
+def rglru_scan(a, x):
+    """The RG-LRU recurrence ``h_t = a_t·h_{t-1} + x_t`` over axis 1 from
+    ``h_{-1} = 0``: a, x (B,T,W), cast to f32; returns h (B,T,W) f32."""
+    _check_scan_shapes("rglru_scan", a, x)
+    if _on_cpu("rglru_scan", a, x):
+        return ref.rglru_scan(a, x)
+    a, x = a.float().contiguous(), x.float().contiguous()
+    h = torch.empty_like(x)
+    _scan_launch("rglru_scan", "repro_torch_rglru_scan", [a, x], [h])
+    return h
+
+
+def rglru_scan_bwd(a, h, dh):
+    """The scan's gradient: from the forward's ``a`` and ``h`` and the
+    output gradient ``dh`` (all (B,T,W)), returns ``(dx, da)`` in f32:
+    ``g_t = dh_t + a_{t+1}·g_{t+1}`` from the last step, ``dx_t = g_t``,
+    ``da_t = g_t·h_{t-1}``."""
+    _check_scan_shapes("rglru_scan_bwd", a, h, dh)
+    if _on_cpu("rglru_scan_bwd", a, h, dh):
+        return ref.rglru_scan_bwd(a, h, dh)
+    a, h, dh = (t.float().contiguous() for t in (a, h, dh))
+    dx, da = torch.empty_like(dh), torch.empty_like(dh)
+    _scan_launch("rglru_scan_bwd", "repro_torch_rglru_scan_bwd", [a, h, dh], [dx, da])
+    return dx, da
+
+
+class RGLRUScan(torch.autograd.Function):
+    """``rglru_scan`` under autograd: the forward saves ``a`` and ``h``,
+    the backward is ``rglru_scan_bwd`` (on the card, the same kernel run
+    in reverse; on the CPU, both plain versions).  Gradients come back in
+    the inputs' dtypes."""
+
+    @staticmethod
+    def forward(ctx, a, x):
+        h = rglru_scan(a, x)
+        ctx.save_for_backward(a, h)
+        ctx.x_dtype = x.dtype
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        a, h = ctx.saved_tensors
+        dx, da = rglru_scan_bwd(a, h, dh)
+        return da.to(a.dtype), dx.to(ctx.x_dtype)

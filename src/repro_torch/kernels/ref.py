@@ -14,7 +14,14 @@ scores taken in the input dtype then f32, softmax weights cast to q's
 dtype before P·V) and ``decode_attention`` / ``_grouped_sdpa`` (grouped
 caches, mask ``position <= cur``).  The CUDA kernels keep p unnormalised
 and divide at the end, so in bf16 the two differ by rounding; the tests
-and the smoke run hold them to 2e-5 in f32 and 2e-2 in bf16.
+and the smoke run hold them to 2e-5 in f32 and 2e-2 in bf16.  ``sdpa``
+is the port's layer function (:mod:`repro_torch.layers.sdpa`), which the
+training path differentiates too.
+
+``rglru_scan`` / ``rglru_scan_bwd`` (the RG-LRU layer's recurrence and
+its gradient, the training path) walk time one step at a time, each step
+one multiply and then one add in f32, as csrc/rglru_scan.cu does: the
+kernel is bit-exact against them.
 """
 from __future__ import annotations
 
@@ -23,7 +30,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-NEG_INF = -1e30
+from repro_torch.layers.sdpa import NEG_INF, sdpa
 
 
 def batch_gather(table, indices, rows_per_block: int = 1):
@@ -38,25 +45,6 @@ def batch_gather(table, indices, rows_per_block: int = 1):
     i = indices.to(torch.int32).long()
     i = torch.where(i < 0, i + nb, i).clamp(0, nb - 1)
     return table.reshape(nb, r, d)[i].reshape(indices.shape[0] * r, d)
-
-
-def _expand_kv(q, k, v):
-    g = q.shape[2] // k.shape[2]
-    if g > 1:
-        k = k.repeat_interleave(g, dim=2)
-        v = v.repeat_interleave(g, dim=2)
-    return k, v
-
-
-def sdpa(q, k, v, mask=None):
-    """Expanded-head attention.  mask broadcastable to (B,H,S,T), True=keep."""
-    d = q.shape[-1]
-    k, v = _expand_kv(q, k, v)
-    scores = torch.einsum("bshd,bthd->bhst", q, k).float() / math.sqrt(d)
-    if mask is not None:
-        scores = torch.where(mask, scores, NEG_INF)
-    w = torch.softmax(scores, dim=-1).to(q.dtype)
-    return torch.einsum("bhst,bthd->bshd", w, v)
 
 
 def causal_mask(s: int, t: int, device) -> torch.Tensor:
@@ -111,3 +99,33 @@ def csr_dot(indices, values, w):
         acc = acc[:, :width] + acc[:, width:]
         width //= 2
     return acc[:, 0]
+
+
+def rglru_scan(a, x):
+    """a, x: (B,T,W) -> h (B,T,W) f32 with ``h_t = a_t·h_{t-1} + x_t`` and
+    ``h_{-1} = 0`` (``rglru_scan_ref``), stepped through time in order."""
+    a, x = a.float(), x.float()
+    h = torch.empty_like(x)
+    carry = x.new_zeros(x.shape[0], x.shape[2])
+    for t in range(x.shape[1]):
+        carry = a[:, t] * carry + x[:, t]
+        h[:, t] = carry
+    return h
+
+
+def rglru_scan_bwd(a, h, dh):
+    """The scan's gradient from the saved ``a`` and ``h`` (B,T,W): walking
+    from the last step, ``g_t = dh_t + a_{t+1}·g_{t+1}`` (``g_{T-1} =
+    dh_{T-1}``), ``dx_t = g_t`` and ``da_t = g_t·h_{t-1}`` (``h_{-1} = 0``).
+    Returns ``(dx, da)`` in f32."""
+    a, h, dh = a.float(), h.float(), dh.float()
+    dx, da = torch.empty_like(dh), torch.empty_like(dh)
+    g = dh.new_zeros(dh.shape[0], dh.shape[2])
+    a_next = torch.zeros_like(g)
+    zero = torch.zeros_like(g)
+    for t in reversed(range(dh.shape[1])):
+        g = dh[:, t] + a_next * g
+        dx[:, t] = g
+        da[:, t] = g * (h[:, t - 1] if t else zero)
+        a_next = a[:, t]
+    return dx, da

@@ -1,9 +1,9 @@
 """Shared launcher flags for the read path (the port's copy of
-``repro.launch.args.add_read_path_args``).
+``repro.launch.args``: ``add_read_path_args`` and
+``make_shuffler_from_args``).
 
-The serving launcher declares the same flags as the JAX one; the port's
-engine runs only ``--cache-mb 0`` so far, and the launcher refuses the
-rest of the tier.
+The launchers declare the same flags as the JAX ones; the port runs only
+``--cache-mb 0`` so far, and the launchers refuse the rest of the tier.
 """
 from __future__ import annotations
 
@@ -43,3 +43,19 @@ def add_read_path_args(ap: argparse.ArgumentParser) -> argparse.ArgumentParser:
                         "plans instead of reading them twice (auto = on "
                         "for belady, off for lru)")
     return ap
+
+
+def make_shuffler_from_args(args, store, batch: int, seed: int):
+    """Build the shuffle strategy the flags describe over ``store``."""
+    from repro_torch.train.loop import make_shuffler
+
+    kw = {}
+    if args.shuffler == "lirs_page":
+        kw["page_groups"] = store.page_groups()
+    elif args.shuffler in ("corgipile", "corgi2"):
+        if args.shuffle_block_records > 0:
+            kw["block_records"] = args.shuffle_block_records
+        kw["buffer_blocks"] = args.shuffle_buffer_blocks
+    return make_shuffler(
+        args.shuffler, store.num_records, batch, seed=seed, **kw
+    )

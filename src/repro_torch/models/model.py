@@ -1,6 +1,6 @@
-"""Model assembly: init, forward, and the serving entry points
-(``prefill_at``, ``decode_step_slots``, ``write_prefill_slot``,
-``init_decode_cache``).
+"""Model assembly: init, forward, the training loss (``loss_fn``) and the
+serving entry points (``prefill_at``, ``decode_step_slots``,
+``write_prefill_slot``, ``init_decode_cache``).
 
 Parameters mirror the JAX tree: ``{"embed", "stages", "final_norm",
 "lm_head"}`` with every stage a tuple (one entry per pattern position) of
@@ -8,26 +8,30 @@ dicts whose leaves are stacked on a leading ``repeats`` axis.  Decode
 caches likewise: ``{"pos": (B,) int32, "stages": [tuple of {"k", "v"}
 leaves (L, B, C, K, D)]}``.  A Python loop over the stacked layers takes
 the place of ``lax.scan``.
+
+Training rematerialises one pattern period at a time, as the JAX
+package's ``_remat_wrap`` does, with ``torch.utils.checkpoint``: the
+period's activations are dropped after the forward and recomputed in the
+backward.  JAX's ``remat="dots"`` keeps the matrix products' outputs
+(``checkpoint_dots``) and recomputes only the rest; torch has no such
+policy in ``checkpoint``, so "dots" recomputes the whole period, as
+"full" does (the same values, more recomputation).
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.layers.common import dense_init, rms_norm
 from repro_torch.layers.positional import default_positions, rope_angles
 from repro_torch.models.blocks import apply_block, init_block, init_cache
 from repro_torch.models.config import ModelConfig
+from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
-
-def tree_map(fn, tree):
-    """Apply ``fn`` to every tensor of a nested dict/list/tuple."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    return fn(tree)
+AUX_LOSS_WEIGHT = 0.01
 
 
 def _copy_into(dst, src) -> None:
@@ -40,6 +44,15 @@ def _copy_into(dst, src) -> None:
 
 def _layer(tree, i: int):
     return tree_map(lambda x: x[i], tree)
+
+
+def _unstack(tree, repeats: int):
+    """The per-layer trees of a stacked stage, as views from one
+    ``unbind`` per leaf: autograd then stacks the layers' gradients once,
+    where ``x[i]`` per layer would scatter each into a full-size zero
+    tensor."""
+    parts = [leaf.unbind(0) for leaf in tree_leaves(tree)]
+    return [tree_unflatten(tree, [p[i] for p in parts]) for i in range(repeats)]
 
 
 # ------------------------------------------------------------------ init
@@ -76,6 +89,31 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device) -> Dict[st
     return params
 
 
+# ------------------------------------------------------------ stage loop
+
+
+def _remat_wrap(fn, cfg: ModelConfig):
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat not in ("dots", "full"):
+        raise ValueError(f"remat must be none|dots|full, got {cfg.remat!r}")
+    # "dots" as "full": see the module docstring.  The forward draws no
+    # random numbers, so no RNG state needs replaying.
+    return functools.partial(checkpoint, fn, use_reentrant=False, preserve_rng_state=False)
+
+
+def _run_stage_train(stage_params, pattern, repeats: int, x, cfg: ModelConfig, aux):
+    def body(x, lp):
+        for pi, kind in enumerate(pattern):
+            x, _ = apply_block(kind, lp[pi], x, cfg, "train", aux=aux)
+        return x
+
+    body = _remat_wrap(body, cfg)
+    for lp in _unstack(stage_params, repeats):
+        x = body(x, lp)
+    return x
+
+
 # --------------------------------------------------------------- forward
 
 
@@ -97,19 +135,25 @@ def _logits(cfg: ModelConfig, params, hidden: torch.Tensor) -> torch.Tensor:
 
 def forward_hidden(cfg: ModelConfig, params, tokens: torch.Tensor, mode: str,
                    caches=None, pos=None):
-    """``mode='prefill'``: returns ``(hidden, stage caches)`` with cache
-    leaves stacked (L, B, S, K, D).  ``mode='decode'``: tokens (B, 1) at
-    per-row positions ``pos`` (B,); the caches' leaves are updated in
-    place and returned."""
-    if mode not in ("prefill", "decode"):
+    """Returns ``(hidden, stage caches, aux loss)``.  ``mode='train'``: no
+    caches; each pattern period rematerialised per ``cfg.remat``.
+    ``mode='prefill'``: cache leaves stacked (L, B, S, K, D).
+    ``mode='decode'``: tokens (B, 1) at per-row positions ``pos`` (B,);
+    the caches' leaves are updated in place and returned.  The aux loss is
+    zero: only ``moe`` blocks add to it, and the port does not run them."""
+    if mode not in ("train", "prefill", "decode"):
         raise NotImplementedError(f"mode {mode!r} is not ported yet")
     b, s = tokens.shape
     x = _embed(cfg, params, tokens)
-    offset = 0 if mode == "prefill" else pos
+    offset = pos if mode == "decode" else 0
     aux = _rope_aux(cfg, b, s, offset, tokens.device)
+    aloss = torch.zeros((), dtype=torch.float32, device=tokens.device)
     new_caches = []
     for si, (pattern, repeats) in enumerate(cfg.stages):
         sp = params["stages"][si]
+        if mode == "train":
+            x = _run_stage_train(sp, pattern, repeats, x, cfg, aux)
+            continue
         per_layer = []
         for i in range(repeats):
             out = []
@@ -130,7 +174,47 @@ def forward_hidden(cfg: ModelConfig, params, tokens: torch.Tensor, mode: str,
         else:
             new_caches.append(caches["stages"][si])
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x, new_caches
+    return x, new_caches, aloss
+
+
+# ------------------------------------------------------------------ loss
+
+
+def loss_fn(cfg: ModelConfig, params, batch):
+    """Mean next-token cross-entropy over labels >= 0 (negative labels are
+    masked), plus ``AUX_LOSS_WEIGHT`` times the aux loss.  ``batch``:
+    ``tokens`` and ``labels`` (B, S) int tensors.  The logits are taken in
+    the compute dtype, then f32; ``cfg.loss_chunk`` splits the sequence
+    into chunks summed in order; ``cfg.loss_impl`` is "log_softmax" or
+    "lse".  Returns ``(loss, {"ce", "aux"})``."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    extras = sorted(set(batch) - {"tokens", "labels"})
+    if extras:
+        raise NotImplementedError(f"batch extras {extras} are not ported yet")
+    hidden, _, aloss = forward_hidden(cfg, params, tokens, "train")
+    valid = (labels >= 0).float()
+    safe_labels = labels.clamp(min=0).long()
+
+    def ce(h, lab, val):
+        logits = _logits(cfg, params, h).float()
+        idx = lab[..., None]
+        if cfg.loss_impl == "lse":
+            nll = torch.logsumexp(logits, dim=-1) - logits.gather(-1, idx)[..., 0]
+        else:
+            nll = -torch.log_softmax(logits, dim=-1).gather(-1, idx)[..., 0]
+        return (nll * val).sum(), val.sum()
+
+    chunk = cfg.loss_chunk
+    if chunk and hidden.shape[1] % chunk == 0:
+        tot = cnt = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        for c0 in range(0, hidden.shape[1], chunk):
+            sl = slice(c0, c0 + chunk)
+            s_, n_ = ce(hidden[:, sl], safe_labels[:, sl], valid[:, sl])
+            tot, cnt = tot + s_, cnt + n_
+    else:
+        tot, cnt = ce(hidden, safe_labels, valid)
+    loss = tot / cnt.clamp(min=1.0)
+    return loss + AUX_LOSS_WEIGHT * aloss, {"ce": loss, "aux": aloss}
 
 
 # --------------------------------------------------------------- serving
@@ -144,7 +228,7 @@ def prefill_at(cfg: ModelConfig, params, tokens: torch.Tensor, lengths: torch.Te
     never attend the junk, and the returned per-row KV past ``lengths``
     is overwritten by decode writes before it is ever attended.
     """
-    hidden, caches = forward_hidden(cfg, params, tokens, "prefill")
+    hidden, caches, _ = forward_hidden(cfg, params, tokens, "prefill")
     lengths = lengths.to(device=tokens.device, dtype=torch.int32)
     rows = torch.arange(tokens.shape[0], device=tokens.device)
     last = hidden[rows, lengths.long() - 1]
@@ -160,7 +244,7 @@ def decode_step_slots(cfg: ModelConfig, params, cache, tokens: torch.Tensor):
     cache holds the same leaves and ``pos + 1``.
     """
     pos = cache["pos"]
-    hidden, stages = forward_hidden(cfg, params, tokens, "decode", caches=cache, pos=pos)
+    hidden, stages, _ = forward_hidden(cfg, params, tokens, "decode", caches=cache, pos=pos)
     logits = _logits(cfg, params, hidden[:, -1])
     return {"pos": pos + 1, "stages": stages}, logits
 

@@ -14,8 +14,10 @@ import torch
 
 def _leaf(x, device) -> torch.Tensor:
     a = np.asarray(x)
+    # a copy either way: the source may be read-only (a JAX array's
+    # buffer) and the port updates its parameters in place
     if a.dtype.name == "bfloat16":  # ml_dtypes: numpy has no bf16 of its own
-        t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16)).view(torch.bfloat16)
+        t = torch.from_numpy(np.array(a, copy=True).view(np.int16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(np.array(a, copy=True))
     return t.to(device)

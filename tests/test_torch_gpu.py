@@ -9,7 +9,9 @@ installed:
 Tolerances for attention are those of ``tests/test_kernels.py``: 2e-5
 in f32, 2e-2 in bf16.  ``csr_dot`` is bit-exact against ``ref.csr_dot``,
 which sums in the kernel's order; both gathers copy bytes and are
-bit-exact against ``ref.batch_gather``.
+bit-exact against ``ref.batch_gather``.  The scan (``rglru_scan`` and its
+backward ``rglru_scan_bwd``) is bit-exact against ``ref.rglru_scan`` /
+``ref.rglru_scan_bwd``, which step through time as the kernel does.
 """
 import pytest
 import torch
@@ -115,3 +117,29 @@ def test_batch_gather_kernels_on_card_bit_exact(cuda, n, d, b, r, m, off, dt):
         assert tuple(fn(table, idx[:0], block_d=d, rows_per_block=r).shape) == (0, d)
     assert ops.LAUNCHES["batch_gather"] == before["batch_gather"] + 1
     assert ops.LAUNCHES["batch_gather_dma"] == before["batch_gather_dma"] + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,t,w", [(1, 4096, 2560), (3, 1000, 2560 + 96), (2, 1, 40), (1, 33, 1)])
+def test_rglru_scan_kernels_on_card_bit_exact(cuda, b, t, w):
+    """Forward and reverse against the plain versions, bit for bit, at the
+    training path's shape, a ragged one and T = 1; through ops.RGLRUScan,
+    one launch of each per step of autograd."""
+    g = torch.Generator(device=cuda).manual_seed(b + t + w)
+    a = torch.rand(b, t, w, generator=g, device=cuda) * 0.4 + 0.6
+    x = torch.randn(b, t, w, generator=g, device=cuda)
+    dh = torch.randn(b, t, w, generator=g, device=cuda)
+    before = dict(ops.LAUNCHES)
+    h = ops.rglru_scan(a, x)
+    dx, da = ops.rglru_scan_bwd(a, h, dh)
+    torch.cuda.synchronize()
+    want_h = ref.rglru_scan(a, x)
+    want_dx, want_da = ref.rglru_scan_bwd(a, want_h, dh)
+    assert torch.equal(h, want_h) and torch.equal(dx, want_dx) and torch.equal(da, want_da)
+    assert ops.LAUNCHES["rglru_scan"] == before["rglru_scan"] + 1
+    assert ops.LAUNCHES["rglru_scan_bwd"] == before["rglru_scan_bwd"] + 1
+    ta, tx = a.clone().requires_grad_(), x.clone().requires_grad_()
+    ops.RGLRUScan.apply(ta, tx).backward(dh)
+    assert torch.equal(tx.grad, dx) and torch.equal(ta.grad, da)
+    assert ops.LAUNCHES["rglru_scan"] == before["rglru_scan"] + 2
+    assert ops.LAUNCHES["rglru_scan_bwd"] == before["rglru_scan_bwd"] + 2

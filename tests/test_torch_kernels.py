@@ -120,8 +120,11 @@ def test_cpu_path_launches_no_kernel_and_other_devices_raise():
     ops.csr_dot(idx, val, w)
     ops.batch_gather(val, idx[0])
     ops.batch_gather_dma(val, idx[0])
+    a = torch.rand(2, 5, 3, requires_grad=True)
+    ops.RGLRUScan.apply(a, a).sum().backward()
     assert ops.LAUNCHES == {"flash_attention": 0, "flash_decode": 0, "csr_dot": 0,
-                            "batch_gather": 0, "batch_gather_dma": 0}
+                            "batch_gather": 0, "batch_gather_dma": 0,
+                            "rglru_scan": 0, "rglru_scan_bwd": 0}
     with pytest.raises(ValueError, match="no kernel for device meta"):
         ops.batch_gather(val.to("meta"), idx[0].to("meta"))
     with pytest.raises(ValueError, match="no kernel for device meta"):
