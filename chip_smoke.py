@@ -6,17 +6,21 @@
 1. Prints the card (``nvidia-smi`` name and power limit) and versions;
    exits non-zero without a CUDA device.
 2. Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
-   (nvcc, sm_90a, one process per source) and prints the build time and
-   ptxas resource use.
+   (nvcc, sm_90a, one process per source) and prints the build time,
+   each kernel's registers and spills (ptxas), and the count of the
+   redesigned kernels' tensor-core and bulk-copy instructions (SASS from
+   cuobjdump, else PTX); fails if those kernels spill or lack them.
 3. Holds each kernel against its plain PyTorch version on the card:
-   the attention kernels in bf16 and f32 at the serving path's shapes
-   plus ragged ones and decode rows with ``cur >= T``; ``csr_dot``
+   the attention kernels in bf16 (the tensor-core kernel) and f32 (the
+   CUDA-core kernel) at the serving path's shapes plus ragged ones and
+   decode rows with ``cur >= T``; ``csr_dot``
    bit-exact (``torch.equal``) with both ``gather`` values at the SVM
    path's shape, a kddcup10-like one, a ragged B, duplicate ids and
    B = 0 (no launch).  Times the attention kernels, their plain versions
    and one PyTorch library call (``scaled_dot_product_attention``, a
    yardstick only: the port never calls it) and computes the least time
-   the card could take.
+   the card could take; ``flash_attention`` also at granite-3-8b's
+   4,096-token context (the row's ``context_4096``).
 4. Holds the port's model on the card against the same model on the CPU
    (plain kernel versions) at smoke size, in float32; and ``LinearSVM``
    likewise, a few steps on one dense batch at epsilon's width.
@@ -116,6 +120,8 @@ TRAIN_ARGS = ["--arch", "recurrentgemma-2b", "--seq-len", "4096", "--batch", "1"
               "--device", "cuda"]
 SCAN_SHAPES = ((1, 4096, 2560), (3, 1000, 2560 + 96), (2, 1, 2560))  # the path's first
 
+LONG_CONTEXT = 4096  # granite-3-8b's context: flash_attention's second timed shape
+
 SERVE_ARGS = ["--arch", "granite-3-8b", "--serve-mode", "continuous",
               "--max-batch", "8", "--prompt-capacity", "128", "--gen", "32",
               "--requests", "16", "--offered-load", "1.0", "--seed", "0",
@@ -182,6 +188,62 @@ def time_ms(fns, n=50, rounds=3):
 
 # ------------------------------------------------------------ kernels
 
+# the kernels redesigned for Hopper (mangled-name fragments) and the
+# instructions that show they use the tensor cores and bulk copies: SASS
+# from cuobjdump where the toolkit has it, else PTX from nvcc -ptx
+NEW_KERNELS = ("fa_wgmma_kernel", "gather_bulk_kernel", "gather_staged_kernel")
+SASS_OPS = {"fa_wgmma_kernel": ("HGMMA", "UTMALDG"), "gather_bulk_kernel": ("UBLKCP",)}
+PTX_OPS = {"flash_attention_wgmma.cu": ("wgmma.mma_async", "cp.async.bulk.tensor"),
+           "batch_gather.cu": ("cp.async.bulk.shared", "cp.async.bulk.global")}
+
+
+def ptxas_resources(log):
+    """{mangled kernel name: registers and spill bytes} from ``-Xptxas -v``."""
+    import re
+
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = m.group(1)
+            out[fn] = {"registers": None, "spill_stores": 0, "spill_loads": 0}
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and fn:
+            out[fn]["spill_stores"], out[fn]["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            out[fn]["registers"] = int(m.group(1))
+    return out
+
+
+def instruction_counts(lib):
+    """Count the tensor-core and bulk-copy instructions of the redesigned
+    kernels in the built library (SASS), or in their PTX without cuobjdump;
+    fails if one is missing."""
+    import shutil
+
+    from repro_torch.kernels import build
+
+    cuobjdump = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(build._nvcc()), "cuobjdump")
+    if os.path.exists(cuobjdump):
+        sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
+                              timeout=300, check=True).stdout
+        funcs = sass.split("Function : ")[1:]
+        for key, ops in SASS_OPS.items():
+            text = "".join(f for f in funcs if f.split()[0].find(key) >= 0)
+            counts = {op: text.count(op) for op in ops}
+            print(f"  SASS of {key}: {counts}")
+            check(all(counts.values()), f"{key}: SASS lacks one of {ops}")
+        return
+    for src, ops in PTX_OPS.items():
+        ptx = subprocess.run([build._nvcc(), *build.ARCH_FLAGS, "-std=c++17", "-ptx", "-o", "-",
+                              str(build.CSRC / src)], capture_output=True, text=True,
+                             timeout=300, check=True).stdout
+        counts = {op: ptx.count(op) for op in ops}
+        print(f"  PTX of {src} (no cuobjdump): {counts}")
+        check(all(counts.values()), f"{src}: PTX lacks one of {ops}")
+
 
 def kernel_phase(dev):
     import torch.nn.functional as F
@@ -194,37 +256,47 @@ def kernel_phase(dev):
         return torch.randn(*shape, generator=g).to(dev, dt)
 
     rows = []
-    print("flash_attention vs plain version:")
+    print("flash_attention vs plain version (bf16: tensor-core kernel; f32: CUDA-core kernel):")
     for dt in (torch.bfloat16, torch.float32):
         for p, causal in ((128, True), (200, True), (200, False)):
             q, k, v = randn(1, p, 32, 128, dt=dt), randn(1, p, 8, 128, dt=dt), randn(1, p, 8, 128, dt=dt)
             got = ops.flash_attention(q, k, v, causal)
             torch.cuda.synchronize()
-            compare(f"{dt} q{tuple(q.shape)} kv{tuple(k.shape)} causal={causal}",
+            compare(f"{dt} q{tuple(q.shape)} kv{tuple(k.shape)} causal={causal} "
+                    f"({ops._attention_kernel(dt, 128, 4)})",
                     got, ref.flash_attention(q, k, v, causal), TOL[str(dt)])
 
-    # the prefill path's shape and dtype: one admitted 128-token prompt
+    # the prefill path's shape and dtype: one admitted 128-token prompt;
+    # then granite-3-8b's full 4,096-token context, where the tensor cores show
     dt = torch.bfloat16
-    q, k, v = randn(1, 128, 32, 128, dt=dt), randn(1, 128, 8, 128, dt=dt), randn(1, 128, 8, 128, dt=dt)
-    err = compare("timed inputs", ops.flash_attention(q, k, v), ref.flash_attention(q, k, v), 2e-2)
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    t, eager = time_ms({
-        "kernel": lambda: ops.flash_attention(q, k, v),
-        "plain": lambda: ref.flash_attention(q, k, v),
-        "library": lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True),
-    })
-    s, h, d = q.shape[1], q.shape[2], q.shape[3]
-    pairs = s * (s + 1) // 2
-    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
+    timed = {}
+    for s in (128, LONG_CONTEXT):
+        q, k, v = randn(1, s, 32, 128, dt=dt), randn(1, s, 8, 128, dt=dt), randn(1, s, 8, 128, dt=dt)
+        err = compare(f"timed inputs q{tuple(q.shape)} kv{tuple(k.shape)} causal=True",
+                      ops.flash_attention(q, k, v), ref.flash_attention(q, k, v), 2e-2)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        t, eager = time_ms({
+            "kernel": lambda: ops.flash_attention(q, k, v),
+            "plain": lambda: ref.flash_attention(q, k, v),
+            "library": lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                              enable_gqa=True),
+        }, n=50 if s == 128 else 10)
+        h, d = q.shape[2], q.shape[3]
+        pairs = s * (s + 1) // 2
+        nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
+        timed[s] = dict(max_abs_err=err, ms=t["kernel"], plain_ms=t["plain"],
+                        **bound(nbytes, 4 * pairs * h * d, BF16_FLOPS), library_ms=t["library"])
+        print(f"  S = T = {s}: device ms per call: {t}; eager ms per call: {eager}; bound "
+              f"{timed[s]['bound_ms']:.6f} ms ({timed[s]['bound_by']}); kernel at "
+              f"{timed[s]['bound_ms'] / t['kernel']:.3f} of it, SDPA at "
+              f"{timed[s]['bound_ms'] / t['library']:.3f}")
+        del q, k, v, qt, kt, vt
     rows.append(dict(
         name="flash_attention", route="cuda",
-        source="src/repro_torch/kernels/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention.py:104",
-        max_abs_err=err, ms=t["kernel"], plain_ms=t["plain"],
-        **bound(nbytes, 4 * pairs * h * d, BF16_FLOPS), library_ms=t["library"],
+        source="src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
+        replaces="src/repro/kernels/flash_attention.py:104", **timed[128],
+        context_4096=timed[LONG_CONTEXT],
     ))
-    print(f"  device ms per call: {t}; eager ms per call: {eager}; "
-          f"bound {rows[-1]['bound_ms']:.6f} ms ({rows[-1]['bound_by']})")
 
     print("flash_decode vs plain version:")
     c = 160  # the arena: prompt capacity 128 + 32 generated
@@ -1088,9 +1160,16 @@ def main() -> int:
     lib = build.build()
     build.library()
     print(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s: {lib}")
-    for line in (lib.parent / "build.log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    resources = ptxas_resources((lib.parent / "build.log").read_text())
+    for fn, res in resources.items():
+        print(f"  ptxas: {fn}: {res['registers']} registers, {res['spill_stores']} bytes spill "
+              f"stores, {res['spill_loads']} bytes spill loads")
+    for key in NEW_KERNELS:
+        hits = [fn for fn in resources if key in fn]
+        check(bool(hits), f"ptxas reported no kernel {key}")
+        check(all(resources[fn]["spill_stores"] == resources[fn]["spill_loads"] == 0 for fn in hits),
+              f"{key} spills registers")
+    instruction_counts(lib)
 
     rows = kernel_phase(dev)
     gathers = gather_kernel_phase(dev)
@@ -1114,8 +1193,8 @@ def main() -> int:
     for name in ("rglru_scan", "rglru_scan_bwd"):
         rows.append(dict(scans[name], launches=train_launches[name]))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in rows]}))
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "context_4096")
+    print(json.dumps({"kernels": [{k: row[k] for k in keys if k in row} for row in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -21,9 +21,9 @@ import tempfile
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("flash_attention.cu", "flash_decode.cu", "csr_dot.cu", "batch_gather.cu",
-           "rglru_scan.cu")
-HEADERS = ("attention_tile.cuh",)
+SOURCES = ("flash_attention.cu", "flash_attention_wgmma.cu", "flash_decode.cu", "csr_dot.cu",
+           "batch_gather.cu", "rglru_scan.cu")
+HEADERS = ("attention_tile.cuh", "hopper_async.cuh")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 LIB_NAME = "librepro_torch_kernels.so"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -35,6 +35,7 @@ _L = ctypes.c_longlong
 # name -> argtypes of the extern "C" entry points (see the .cu files)
 _SIGNATURES = {
     "repro_torch_flash_attention": [_P, _P, _P, _P] + [_I] * 8 + [_P],
+    "repro_torch_flash_attention_wgmma": [_P, _P, _P, _P] + [_I] * 7 + [_P],
     "repro_torch_flash_decode": [_P, _P, _P, _P, _P] + [_I] * 6 + [_P],
     "repro_torch_csr_dot": [_P, _P, _P, _P, _I, _I, _P],
     "repro_torch_batch_gather": [_P, _P, _P, _L, _L, _L, _P],

@@ -15,9 +15,10 @@
 //
 // What bounds it on an H100: bytes, 2 * block_bytes per index plus the
 // 4-byte id, and no arithmetic. At the DNN path's shape (100 rows of
-// 128 B) the work is 26 KB, some 8 ns at 3.35 TB/s, so one launch costs
-// far more than the copy; at large B the copy runs at the memory rate
-// when every thread moves 16-byte words with several loads in flight.
+// 128 B) the work is 26 KB, some 8 ns at 3.35 TB/s, so a launch costs
+// far more than the copy and what is left of the kernel's own time is
+// the number of dependent DRAM round trips a block makes; at large B the
+// copy runs at the memory rate when enough bytes are in flight.
 //
 // Design. Both kernels only move bytes, so one kernel serves f32, bf16
 // and int32: the host picks the widest word (16, 4 or 2 bytes) that
@@ -27,23 +28,47 @@
 //   (G the power of two >= the block's word count, at most 256); group g
 //   copies one index's block, each thread four words at a time with the
 //   loads issued before the stores.
-// - batch_gather_dma: one block of 128 threads takes rows_per_step
-//   indices and streams their blocks, cut into chunks of at most 16 KB,
-//   through two shared-memory slots with cp.async: the load of chunk s+1
-//   is in flight while chunk s is written out. The ragged last block
-//   takes only the indices that exist (the Pallas kernel pads with id 0
-//   and slices the padding off; the output is the same). A 2-byte word
-//   has no cp.async form: then each chunk is staged by plain loads.
-// TMA bulk copies and a persistent grid are later work.
+// - batch_gather_dma: one block takes rows_per_step indices and stages
+//   their blocks through shared memory, cut into stages (one index's
+//   block, or a chunk of at most 16 KB of it), in rounds of as many
+//   stages as fit in 96 KB (at most 128): every stage of a round is in
+//   flight at once, so at the DNN path's shape (8 rows of 128 B) a block
+//   makes one DRAM round trip for its ids, one for its rows, then the
+//   stores. (The Pallas kernel's two-slot VMEM ring allowed two loads in
+//   flight; on this card that made 8 dependent round trips a block, each
+//   behind two barriers.)
+//   - 16-byte words (block_bytes % 16 == 0, both pointers 16-byte
+//     aligned): one warp and bulk copies (cp.async.bulk), one slot and
+//     one mbarrier a stage (expect_tx = the stage's bytes, parity flipping
+//     each round); each lane loads the ids of its stages and issues their
+//     loads, then waits for each and issues its bulk store; before the
+//     next round refills the slots, each lane waits until its stores have
+//     read them (wait_group.read 0). Issue is spread over the warp because
+//     the copy engine and one thread's issue chain are the limits here:
+//     lane 0 issuing every stage cost ~0.2 us a stage.
+//   - 4- and 2-byte words (4-byte label rows, offset tables): 128
+//     threads issue all of a round's stages at once, as cp.async (plain
+//     loads for 2-byte words, which have no cp.async form), one commit
+//     group, one wait and one barrier, then the stores.
+//   The ragged last block takes only the indices that exist (the Pallas
+//   kernel pads with id 0 and slices the padding off; the output is the
+//   same).
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
+
+#include "hopper_async.cuh"
 
 namespace repro_torch {
 
 constexpr int kGatherThreads = 256;
 constexpr int kUnroll = 4;
-constexpr int kDmaThreads = 128;
-constexpr long long kChunkBytes = 16384;  // one ring slot
+constexpr int kDmaThreads = 128;                // batch_gather_dma, 4- and 2-byte words
+constexpr int kBulkThreads = 32;                // batch_gather_dma, bulk copies
+constexpr long long kChunkBytes = 16384;        // the largest stage
+constexpr long long kRingBytes = 96 * 1024;     // two blocks' rings fit on one SM
+constexpr long long kMaxDepth = 128;            // stages in flight (one mbarrier each)
 
 __device__ __forceinline__ long long block_of(const int* idx, long long i,
                                               long long n_blocks) {
@@ -75,70 +100,125 @@ gather_kernel(const T* __restrict__ table, const int* __restrict__ idx,
 template <int kWord>
 struct Word;
 template <>
-struct Word<16> { using T = uint4; };
-template <>
 struct Word<4> { using T = uint32_t; };
 template <>
 struct Word<2> { using T = uint16_t; };
 
-// stage `bytes` bytes from global to shared, kWord at a time
-template <int kWord>
-__device__ __forceinline__ void stage(unsigned char* smem, const unsigned char* src,
-                                      long long bytes) {
-  for (long long o = (long long)threadIdx.x * kWord; o < bytes; o += (long long)kDmaThreads * kWord) {
-    if constexpr (kWord == 2) {
-      *(uint16_t*)(smem + o) = *(const uint16_t*)(src + o);
-    } else {
-      const unsigned s = (unsigned)__cvta_generic_to_shared(smem + o);
-      if constexpr (kWord == 16)
-        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src + o));
-      else
-        asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src + o));
-    }
-  }
-  // one group per stage, empty where this thread had nothing to copy
-  asm volatile("cp.async.commit_group;\n" ::);
+// the stage geometry of both ring kernels: a stage is one index's block,
+// or a chunk of at most kChunkBytes of it; slot = a stage's size
+__host__ __device__ __forceinline__ long long slot_bytes(long long block_bytes) {
+  return block_bytes < kChunkBytes ? block_bytes : kChunkBytes;
 }
 
+// 16-byte words: bulk copies, one warp. A round is up to `depth` stages
+// (stage s of the block: row s / chunks, chunk s % chunks), one slot and
+// one mbarrier each; lane l issues the loads of the round's stages l,
+// l + 32, ..., then waits for each and issues its bulk store, so a
+// round's copies go out from 32 threads at once. Before the next round
+// reuses the slots, every lane waits until its stores have read them.
+// Each slot is used once a round, so round r waits for parity r & 1.
+__global__ void __launch_bounds__(kBulkThreads)
+gather_bulk_kernel(const unsigned char* __restrict__ table, const int* __restrict__ idx,
+                   unsigned char* __restrict__ out, long long n_blocks,
+                   long long block_bytes, long long n_idx, int rows_per_step, int depth) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const long long slot = slot_bytes(block_bytes);
+  const long long chunks = (block_bytes + slot - 1) / slot;
+  const uint32_t ring = smem_addr(smem);
+  const uint32_t bars = ring + (uint32_t)(depth * slot);  // depth mbarriers
+  const long long first = (long long)blockIdx.x * rows_per_step;
+  const long long n = min((long long)rows_per_step, n_idx - first) * chunks;
+  const int lane = threadIdx.x;
+  if (lane == 0) {
+    for (int k = 0; k < depth; ++k) mbar_init(bars + 8 * k, 1);
+    fence_barrier_init();
+  }
+  __syncwarp();
+  uint32_t parity = 0;
+  for (long long s0 = 0; s0 < n; s0 += depth, parity ^= 1) {
+    const int stages = (int)min((long long)depth, n - s0);
+    for (int k = lane; k < stages; k += kBulkThreads) {
+      const long long s = s0 + k;
+      const long long row = chunks == 1 ? s : s / chunks;
+      const long long off = (s - row * chunks) * slot;
+      const uint32_t len = (uint32_t)min(slot, block_bytes - off);
+      mbar_expect_tx(bars + 8 * k, len);
+      bulk_load(ring + k * (uint32_t)slot,
+                table + block_of(idx, first + row, n_blocks) * block_bytes + off, len,
+                bars + 8 * k);
+    }
+    for (int k = lane; k < stages; k += kBulkThreads) {
+      const long long s = s0 + k;
+      const long long row = chunks == 1 ? s : s / chunks;
+      const long long off = (s - row * chunks) * slot;
+      mbar_wait(bars + 8 * k, parity);
+      bulk_store(out + (first + row) * block_bytes + off, ring + k * (uint32_t)slot,
+                 (uint32_t)min(slot, block_bytes - off));
+    }
+    bulk_commit();
+    bulk_wait_read();  // this lane's stores have read their slots
+    __syncwarp();
+  }
+}
+
+// 4- and 2-byte words: rounds of up to `depth` stages, each round's
+// copies all issued before one wait and one barrier.
 template <int kWord>
 __global__ void __launch_bounds__(kDmaThreads)
-gather_dma_kernel(const unsigned char* __restrict__ table, const int* __restrict__ idx,
-                  unsigned char* __restrict__ out, long long n_blocks,
-                  long long block_bytes, long long n_idx, int rows_per_step) {
+gather_staged_kernel(const unsigned char* __restrict__ table, const int* __restrict__ idx,
+                     unsigned char* __restrict__ out, long long n_blocks,
+                     long long block_bytes, long long n_idx, int rows_per_step, int depth) {
   using T = typename Word<kWord>::T;
   extern __shared__ __align__(16) unsigned char ring[];
-  const long long slot = block_bytes < kChunkBytes ? block_bytes : kChunkBytes;
+  const long long slot = slot_bytes(block_bytes);
+  const int slot_words = (int)(slot / kWord);
+  const int chunks = (int)((block_bytes + slot - 1) / slot);
   const long long first = (long long)blockIdx.x * rows_per_step;
-  const long long rows = min((long long)rows_per_step, n_idx - first);
-  const long long chunks = (block_bytes + slot - 1) / slot;
-  const long long stages = rows * chunks;
-
-  // stage s = (index first + s / chunks, chunk s % chunks)
-  auto src_of = [&](long long s, long long* len) {
-    const long long c = s % chunks;
-    *len = min(slot, block_bytes - c * slot);
-    return table + block_of(idx, first + s / chunks, n_blocks) * block_bytes + c * slot;
-  };
-
-  long long len;
-  const unsigned char* src = src_of(0, &len);
-  stage<kWord>(ring, src, len);
-  for (long long s = 0; s < stages; ++s) {
-    unsigned char* cur = ring + (s & 1) * slot;
-    const long long cur_len = len;
-    if (s + 1 < stages) {
-      src = src_of(s + 1, &len);
-      stage<kWord>(ring + ((s + 1) & 1) * slot, src, len);
-    } else {
-      asm volatile("cp.async.commit_group;\n" ::);
+  const int rows = (int)min((long long)rows_per_step, n_idx - first);
+  // a round starts at chunk c0 of row row0; item i of the round is word
+  // i % slot_words of the round's stage i / slot_words (32-bit math)
+  for (int row0 = 0, c0 = 0; row0 < rows;) {
+    int stages = 0;  // this round's: up to depth, and no further than the last row
+    {
+      long long left = (long long)(rows - row0) * chunks - c0;
+      stages = (int)min((long long)depth, left);
     }
-    asm volatile("cp.async.wait_group 1;\n" ::);  // stage s has landed
+    const int items = stages * slot_words;
+    for (int i = threadIdx.x; i < items; i += kDmaThreads) {
+      const int t = c0 + i / slot_words;
+      const int row = row0 + t / chunks;
+      const long long off = (long long)(t % chunks) * slot + (long long)(i % slot_words) * kWord;
+      if (off < block_bytes) {  // a block's last chunk may be short
+        const unsigned char* src = table + block_of(idx, first + row, n_blocks) * block_bytes + off;
+        unsigned char* dst = ring + (long long)i * kWord;
+        if constexpr (kWord == 2) {
+          *(uint16_t*)dst = *(const uint16_t*)src;
+        } else {
+          asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src));
+        }
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+    asm volatile("cp.async.wait_group 0;\n" ::);
     __syncthreads();
-    unsigned char* dst = out + (first + s / chunks) * block_bytes + (s % chunks) * slot;
-    for (long long o = (long long)threadIdx.x * kWord; o < cur_len; o += (long long)kDmaThreads * kWord)
-      *(T*)(dst + o) = *(const T*)(cur + o);
-    __syncthreads();  // slot s & 1 is refilled by stage s + 2
+    for (int i = threadIdx.x; i < items; i += kDmaThreads) {
+      const int t = c0 + i / slot_words;
+      const int row = row0 + t / chunks;
+      const long long off = (long long)(t % chunks) * slot + (long long)(i % slot_words) * kWord;
+      if (off < block_bytes)
+        *(T*)(out + (first + row) * block_bytes + off) = *(const T*)(ring + (long long)i * kWord);
+    }
+    __syncthreads();  // the ring is refilled by the next round
+    row0 += (c0 + stages) / chunks;
+    c0 = (c0 + stages) % chunks;
   }
+}
+
+// Dynamic shared memory above the default 48 KB needs the kernel's opt-in.
+template <typename K>
+inline cudaError_t allow_smem(K kernel, int bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
 // the widest word that divides the block and both pointers' alignment
@@ -182,20 +262,36 @@ extern "C" int repro_torch_batch_gather_dma(const void* table, const void* idx, 
                                             void* stream) {
   using namespace repro_torch;
   const int word = word_bytes(table, out, block_bytes);
-  const long long slot = block_bytes < kChunkBytes ? block_bytes : kChunkBytes;
-  const size_t smem = (size_t)(2 * ((slot + 15) / 16 * 16));
+  const long long slot = slot_bytes(block_bytes);
+  const long long chunks = (block_bytes + slot - 1) / slot;
+  // the ring: as many stages as a block has, within kRingBytes and kMaxDepth
+  long long depth = std::min<long long>(kMaxDepth, kRingBytes / slot);
+  if (rows_per_step < depth && chunks < depth)
+    depth = std::min<long long>(depth, rows_per_step * chunks);
   const dim3 grid((unsigned)((n_idx + rows_per_step - 1) / rows_per_step));
   const unsigned char* t = (const unsigned char*)table;
   unsigned char* o = (unsigned char*)out;
+  const int* ids = (const int*)idx;
   cudaStream_t s = (cudaStream_t)stream;
-  if (word == 16)
-    gather_dma_kernel<16><<<grid, kDmaThreads, smem, s>>>(
-        t, (const int*)idx, o, n_blocks, block_bytes, n_idx, rows_per_step);
-  else if (word == 4)
-    gather_dma_kernel<4><<<grid, kDmaThreads, smem, s>>>(
-        t, (const int*)idx, o, n_blocks, block_bytes, n_idx, rows_per_step);
-  else
-    gather_dma_kernel<2><<<grid, kDmaThreads, smem, s>>>(
-        t, (const int*)idx, o, n_blocks, block_bytes, n_idx, rows_per_step);
+  const int d = (int)depth;
+  if (word == 16) {
+    const int smem = (int)(depth * slot + depth * 8);
+    cudaError_t err = allow_smem(gather_bulk_kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    gather_bulk_kernel<<<grid, kBulkThreads, smem, s>>>(t, ids, o, n_blocks, block_bytes, n_idx,
+                                                       rows_per_step, d);
+  } else if (word == 4) {
+    const int smem = (int)(depth * slot);
+    cudaError_t err = allow_smem(gather_staged_kernel<4>, smem);
+    if (err != cudaSuccess) return (int)err;
+    gather_staged_kernel<4><<<grid, kDmaThreads, smem, s>>>(t, ids, o, n_blocks, block_bytes,
+                                                           n_idx, rows_per_step, d);
+  } else {
+    const int smem = (int)(depth * slot);
+    cudaError_t err = allow_smem(gather_staged_kernel<2>, smem);
+    if (err != cudaSuccess) return (int)err;
+    gather_staged_kernel<2><<<grid, kDmaThreads, smem, s>>>(t, ids, o, n_blocks, block_bytes,
+                                                           n_idx, rows_per_step, d);
+  }
   return (int)cudaGetLastError();
 }

@@ -17,9 +17,9 @@
 // matrix never reaches device memory. Key tiles past the
 // block's last causal row are never loaded, and the ragged edges
 // (S, T not multiples of the tiles) are masked here: the serve path's
-// S is the prompt capacity, which can be any length. Simple CUDA-core
-// f32 math first; wgmma, TMA and sharing K/V tiles across a GQA group
-// are later work.
+// S is the prompt capacity, which can be any length. CUDA-core f32 math:
+// this kernel serves f32 calls and the head dims and groups that
+// flash_attention_wgmma.cu (bf16 on the tensor cores) does not take.
 #include "attention_tile.cuh"
 
 namespace repro_torch {

@@ -24,6 +24,8 @@ LAUNCHES: Dict[str, int] = {
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HEAD_DIM = 128  # kMaxD in csrc/attention_tile.cuh
+_WGMMA_HEAD_DIMS = (64, 128)  # csrc/flash_attention_wgmma.cu
+_WGMMA_ROWS = 64              # its query tile: the group must divide it
 _MAX_GROUP = 16      # kMaxGroup in csrc/flash_decode.cu
 _GATHER_DTYPES = (torch.float32, torch.bfloat16, torch.int32)
 _MAX_GRID_Y = 65535  # rglru_scan's grid.y is the batch
@@ -71,9 +73,22 @@ def _launch(name: str, fn, *args) -> None:
     LAUNCHES[name] += 1
 
 
+def _attention_kernel(dtype: torch.dtype, d: int, group: int) -> str:
+    """Which CUDA kernel serves a ``flash_attention`` call: ``"wgmma"``
+    (tensor cores, ``flash_attention_wgmma.cu``) for bf16 with head dim
+    64 or 128 and a group ``H / K`` that divides 64; ``"cuda_core"``
+    (``flash_attention.cu``) for everything else, f32 included (TF32
+    products would miss its 2e-5 tolerance)."""
+    if dtype == torch.bfloat16 and d in _WGMMA_HEAD_DIMS and group >= 1 \
+            and _WGMMA_ROWS % group == 0:
+        return "wgmma"
+    return "cuda_core"
+
+
 def flash_attention(q, k, v, causal: bool = True):
     """q: (B,S,H,D); k, v: (B,T,K,D) with H % K == 0.  Returns (B,S,H,D).
-    Any S and T: the kernel masks the ragged edges itself."""
+    Any S and T: the kernels mask the ragged edges themselves.  On the
+    card, ``_attention_kernel`` picks the kernel from dtype, D and group."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"flash_attention: shapes {q.shape}, {k.shape}, {v.shape}")
     b, s, h, d = q.shape
@@ -88,13 +103,14 @@ def flash_attention(q, k, v, causal: bool = True):
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b, s, t, h, kh, d, int(bool(causal)))
     with torch.cuda.device(q.device):
-        _launch(
-            "flash_attention", "repro_torch_flash_attention",
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, s, t, h, kh, d, int(bool(causal)), code,
-            torch.cuda.current_stream().cuda_stream,
-        )
+        stream = torch.cuda.current_stream().cuda_stream
+        if _attention_kernel(q.dtype, d, h // kh) == "wgmma":
+            _launch("flash_attention", "repro_torch_flash_attention_wgmma", *args, stream)
+        else:
+            _launch("flash_attention", "repro_torch_flash_attention", *args, code, stream)
     return out
 
 
@@ -232,8 +248,10 @@ def batch_gather(table, indices, *, block_d: int = 512, rows_per_block: int = 1)
 def batch_gather_dma(table, indices, *, block_d: int = 512, rows_per_block: int = 1,
                      rows_per_step: int = 8):
     """``batch_gather``'s output bit for bit, ``rows_per_step`` indices per
-    thread block staged through a two-slot shared-memory ring
-    (``cp.async``), as the Pallas kernel stages them through VMEM."""
+    thread block staged through shared memory, as the Pallas kernel stages
+    them through VMEM: a ring of up to 96 KB with every stage in flight at
+    once (bulk copies on mbarriers where rows are 16-byte multiples and
+    aligned, else ``cp.async`` or plain loads)."""
     if rows_per_step < 1:
         raise ValueError(f"batch_gather_dma: rows_per_step must be >= 1, got {rows_per_step}")
     idx = _gather_args("batch_gather_dma", table, indices, block_d, rows_per_block)

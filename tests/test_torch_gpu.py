@@ -7,7 +7,9 @@ installed:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Tolerances for attention are those of ``tests/test_kernels.py``: 2e-5
-in f32, 2e-2 in bf16.  ``csr_dot`` is bit-exact against ``ref.csr_dot``,
+in f32, 2e-2 in bf16.  bf16 attention with head dim 64 or 128 and a group
+dividing 64 runs the tensor-core kernel (``flash_attention_wgmma.cu``),
+the rest the CUDA-core one (``flash_attention.cu``).  ``csr_dot`` is bit-exact against ``ref.csr_dot``,
 which sums in the kernel's order; both gathers copy bytes and are
 bit-exact against ``ref.batch_gather``.  The scan (``rglru_scan`` and its
 backward ``rglru_scan_bwd``) is bit-exact against ``ref.rglru_scan`` /
@@ -40,6 +42,32 @@ def test_flash_attention_kernel_on_card(cuda, s, h, kh, d, dt):
         got = ops.flash_attention(q, k, v, causal=causal)
         want = ref.flash_attention(q, k, v, causal=causal)
         torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dt], atol=TOL[dt])
+    assert ops.LAUNCHES["flash_attention"] == before + 2
+
+
+# (S, T): one key tile, its edges (63/64/65), several tiles, granite's
+# 4,096-token context, and S != T both ways
+ATTN_LENGTHS = [(1, 1), (63, 63), (64, 64), (65, 65), (200, 200), (4096, 4096),
+                (1, 200), (65, 200), (200, 63), (4096, 65), (63, 4096)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("group", [1, 4, 8])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s,t", ATTN_LENGTHS)
+def test_flash_attention_wgmma_on_card(cuda, s, t, d, group):
+    """The tensor-core kernel (bf16, D 64/128, groups 1/4/8) against the
+    plain version, causal and not, at ragged S and T; one launch a call."""
+    kh = 2
+    assert ops._attention_kernel(torch.bfloat16, d, group) == "wgmma"
+    g = torch.Generator().manual_seed(s + t + d + group)
+    q = torch.randn(1, s, kh * group, d, generator=g).to(cuda, torch.bfloat16)
+    k, v = (torch.randn(1, t, kh, d, generator=g).to(cuda, torch.bfloat16) for _ in range(2))
+    before = ops.LAUNCHES["flash_attention"]
+    for causal in (True, False):
+        got = ops.flash_attention(q, k, v, causal=causal)
+        want = ref.flash_attention(q, k, v, causal=causal)
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
     assert ops.LAUNCHES["flash_attention"] == before + 2
 
 
@@ -117,6 +145,49 @@ def test_batch_gather_kernels_on_card_bit_exact(cuda, n, d, b, r, m, off, dt):
         assert tuple(fn(table, idx[:0], block_d=d, rows_per_block=r).shape) == (0, d)
     assert ops.LAUNCHES["batch_gather"] == before["batch_gather"] + 1
     assert ops.LAUNCHES["batch_gather_dma"] == before["batch_gather_dma"] + 1
+
+
+# batch_gather_dma's ring: (dtype, width, rows_per_block, offset rows) for
+# 4-byte label rows (cp.async), 128-byte rows (the DNN path's, bulk
+# copies), 2,048-byte rows (a ring that wraps at rows_per_step 64), blocks
+# over 16 KB that are no multiple of the 16 KB chunk (16,400 and 32,800
+# bytes), and tables off a 16-byte boundary (bf16: 2-byte words, plain
+# loads, and 4-byte words; f32 rows of 16,396 bytes in 4-byte words)
+RING_CASES = [(torch.int32, 1, 1, 0), (torch.float32, 32, 1, 0), (torch.float32, 512, 1, 0),
+              (torch.float32, 4100, 1, 0), (torch.float32, 4100, 2, 0),
+              (torch.bfloat16, 3, 1, 1), (torch.bfloat16, 42, 2, 1), (torch.float32, 4099, 1, 1)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 8, 13, 64])
+@pytest.mark.parametrize("dt,d,r,off", RING_CASES)
+def test_batch_gather_dma_ring_on_card_bit_exact(cuda, dt, d, r, off, m):
+    """Every branch of the ring: bulk and staged stages, chunked blocks,
+    slot reuse, a ragged last block (205 ids), wrapped and clamped ids."""
+    n, b = 1024, 205
+    g = torch.Generator(device=cuda).manual_seed(d + r + off + m)
+    full = torch.randn(n + off, d, generator=g, device=cuda).mul(1000).to(dt)
+    table = full[off:]
+    nb = n // r
+    idx = torch.randint(-nb - 3, nb + 4, (b,), generator=g, device=cuda, dtype=torch.int32)
+    idx[:3] = torch.tensor([-1, -nb - 2, nb + 2], dtype=torch.int32)  # wraps, clamps low, high
+    before = ops.LAUNCHES["batch_gather_dma"]
+    got = ops.batch_gather_dma(table, idx, block_d=d, rows_per_block=r, rows_per_step=m)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.batch_gather(table, idx, r))
+    assert ops.LAUNCHES["batch_gather_dma"] == before + 1
+
+
+@pytest.mark.gpu
+def test_batch_gather_dma_many_rounds_on_card_bit_exact(cuda):
+    """rows_per_step far above the 128 stages a round holds: the bulk
+    kernel runs 11 rounds a block, its mbarrier parities flipping each."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    table = torch.randn(4096, 32, generator=g, device=cuda)
+    idx = torch.randint(-4100, 4100, (3000,), generator=g, device=cuda, dtype=torch.int32)
+    got = ops.batch_gather_dma(table, idx, block_d=32, rows_per_step=1300)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.batch_gather(table, idx, 1))
 
 
 @pytest.mark.gpu

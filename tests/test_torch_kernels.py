@@ -133,3 +133,59 @@ def test_cpu_path_launches_no_kernel_and_other_devices_raise():
         ops.csr_dot(idx.to("meta"), val.to("meta"), w.to("meta"))
     with pytest.raises(ValueError, match="several devices"):
         ops.flash_attention(q, k.to("meta"), k)
+
+
+@pytest.mark.parametrize("dtype,d,group,kernel", [
+    (torch.bfloat16, 128, 4, "wgmma"),   # granite-3-8b's prefill
+    (torch.bfloat16, 64, 1, "wgmma"),
+    (torch.bfloat16, 128, 64, "wgmma"),  # one position a 64-row tile
+    (torch.bfloat16, 128, 3, "cuda_core"),  # 3 does not divide 64
+    (torch.bfloat16, 128, 128, "cuda_core"),
+    (torch.bfloat16, 32, 4, "cuda_core"),
+    (torch.bfloat16, 96, 2, "cuda_core"),
+    (torch.float32, 128, 4, "cuda_core"),  # TF32 would miss f32's tolerance
+    (torch.float32, 64, 1, "cuda_core"),
+])
+def test_attention_kernel_routing(dtype, d, group, kernel):
+    assert ops._attention_kernel(dtype, d, group) == kernel
+
+
+def test_check_cuda_rejects_what_the_attention_kernels_do_not_take():
+    """The checks a CUDA call passes before either attention kernel is
+    chosen: dtype, contiguity, 16-byte alignment, grouping, head dim."""
+    q = torch.zeros(1, 4, 8, 64, dtype=torch.bfloat16)
+    k = torch.zeros(1, 4, 2, 64, dtype=torch.bfloat16)
+    assert ops._check_cuda("fa", (q, k, k), 8, 2, 64) == 1
+    assert ops._check_cuda("fa", (q.float(), k.float(), k.float()), 8, 2, 64) == 0
+    with pytest.raises(TypeError, match="one dtype"):
+        ops._check_cuda("fa", (q.half(), k.half(), k.half()), 8, 2, 64)
+    with pytest.raises(TypeError, match="one dtype"):
+        ops._check_cuda("fa", (q, k.float(), k), 8, 2, 64)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops._check_cuda("fa", (q.transpose(1, 2), k, k), 8, 2, 64)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ops._check_cuda("fa", (q.view(-1)[1:].view(1, 1, 1, -1)[..., :64], k, k), 8, 2, 64)
+    with pytest.raises(ValueError, match="do not group"):
+        ops._check_cuda("fa", (q, k, k), 8, 3, 64)
+    with pytest.raises(ValueError, match="head dim"):
+        ops._check_cuda("fa", (q[..., :60].contiguous(), k, k), 8, 2, 60)
+
+
+@pytest.mark.parametrize("call,error", [
+    (lambda: ops.flash_attention(torch.zeros(4, 2, 16), torch.zeros(1, 4, 1, 16),
+                                 torch.zeros(1, 4, 1, 16)), "shapes"),
+    (lambda: ops.flash_attention(torch.zeros(1, 4, 2, 16), torch.zeros(1, 4, 1, 16),
+                                 torch.zeros(1, 5, 1, 16)), "shapes"),
+    (lambda: ops.flash_attention(torch.zeros(2, 4, 2, 16), torch.zeros(1, 4, 1, 16),
+                                 torch.zeros(1, 4, 1, 16)), "vs k"),
+    (lambda: ops.batch_gather_dma(torch.zeros(8, 4), torch.zeros(2, dtype=torch.int32),
+                                  rows_per_step=0), "rows_per_step"),
+    (lambda: ops.batch_gather_dma(torch.zeros(9, 4), torch.zeros(2, dtype=torch.int32),
+                                  rows_per_block=2), "blocks of 2"),
+    (lambda: ops.batch_gather_dma(torch.zeros(8, 4), torch.zeros(2)), "integers"),
+    (lambda: ops.batch_gather_dma(torch.zeros(8, 4, dtype=torch.float64),
+                                  torch.zeros(2, dtype=torch.int32)), "float32/bfloat16/int32"),
+])
+def test_wrapper_argument_checks(call, error):
+    with pytest.raises((ValueError, TypeError), match=error):
+        call()
