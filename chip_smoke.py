@@ -12,8 +12,12 @@
    cuobjdump, else PTX); fails if those kernels spill or lack them.
 3. Holds each kernel against its plain PyTorch version on the card:
    the attention kernels in bf16 (the tensor-core kernel) and f32 (the
-   CUDA-core kernel) at the serving path's shapes plus ragged ones and
-   decode rows with ``cur >= T``; ``csr_dot``
+   CUDA-core kernel) at the serving path's shapes plus ragged ones;
+   ``flash_decode`` (bf16 D 64/128: the split-KV cluster kernel; f32: the
+   tile kernel) at the serving shape, and at T = 1, 32, 33, 160 and 4,096
+   with groups 1/4/8/16, head dims 64 and 128, ``cur`` at 0, at both sides
+   of every 64-key tile edge (every split boundary), T-1, T and past T,
+   and B = 1; ``csr_dot``
    bit-exact (``torch.equal``) with both ``gather`` values at the SVM
    path's shape, a kddcup10-like one, a ragged B, duplicate ids and
    B = 0 (no launch).  Times the attention kernels, their plain versions
@@ -45,7 +49,8 @@
    rows_per_step 1/8/16, ragged B, duplicate and out-of-range ids, B = 0
    without a launch) and times them, their plain version and
    ``index_select`` at the DNN path's shape and a 2 GiB bandwidth shape
-   (this runs right after step 3).
+   (this runs right after step 3); times one ``batch_gather`` launch at
+   B = 1 on the DNN tables, K1's per-launch latency floor.
 9. Trains the paper's DNN workload (Tables 6-7) through
    ``repro_torch.dnn.convergence`` at ImageNet-1k's row count (1,281,160
    rows of 32 f32 features held on the card, vgg-like MLP, batch 100):
@@ -58,7 +63,9 @@
    TFIP's window shuffle and the device's busy share over 200 steps.
 10. Holds ``rglru_scan`` and its backward ``rglru_scan_bwd`` bit-exact
    (``torch.equal``) against their plain versions at the training path's
-   shape (1, 4096, 2560), a ragged one and T = 1, and times each
+   shape (1, 4096, 2560), a ragged one, T = 1, a long ragged T that wraps
+   the TMA ring many times and a W no multiple of the channel strip (each
+   routed to the ring kernel, the lanes kernel at W % 4 != 0), and times each
    direction against its plain loop (no single PyTorch call computes a
    linear recurrence, so there is no library time).  Then one train step
    of smoke recurrentgemma (float32) on the card against the same step on
@@ -118,7 +125,15 @@ GATHER_BW = (1_048_576, 512, 8_192)  # bandwidth shape: a 2 GiB f32 table, B
 TRAIN_ARGS = ["--arch", "recurrentgemma-2b", "--seq-len", "4096", "--batch", "1",
               "--num-records", "64", "--epochs", "1", "--steps", "8", "--seed", "0",
               "--device", "cuda"]
-SCAN_SHAPES = ((1, 4096, 2560), (3, 1000, 2560 + 96), (2, 1, 2560))  # the path's first
+# the path's first; then ragged, T = 1, a long ragged T (128 ring tiles and
+# one step), a W no multiple of the 32-channel strip, and W % 4 != 0
+SCAN_SHAPES = ((1, 4096, 2560), (3, 1000, 2560 + 96), (2, 1, 2560), (1, 16385, 2560),
+               (2, 300, 2568), (2, 77, 2562))
+
+# flash_decode's sweep: arena lengths (one key, one and two 32-key tiles, the
+# serving arena, granite-3-8b's context) and GQA groups
+DECODE_LENGTHS = (1, 32, 33, 160, 4096)
+DECODE_GROUPS = (1, 4, 8, 16)
 
 LONG_CONTEXT = 4096  # granite-3-8b's context: flash_attention's second timed shape
 
@@ -137,14 +152,15 @@ def check(cond: bool, what: str) -> None:
         raise SmokeFailure(what)
 
 
-def compare(label, got, want, tol):
+def compare(label, got, want, tol, show=True):
     """max |got - want| and whether every element is within
     tol + tol·|want| (numpy's allclose with rtol = atol = tol)."""
     got, want = got.float(), want.float()
     err = (got - want).abs()
     ok = bool(torch.isfinite(got).all()) and bool((err <= tol + tol * want.abs()).all())
     max_err = float(err.max())
-    print(f"  {label}: max_abs_err {max_err:.3e} (tol {tol:g}) {'ok' if ok else 'BREACH'}")
+    if show or not ok:
+        print(f"  {label}: max_abs_err {max_err:.3e} (tol {tol:g}) {'ok' if ok else 'BREACH'}")
     check(ok, f"{label} outside tolerance")
     return max_err
 
@@ -191,10 +207,15 @@ def time_ms(fns, n=50, rounds=3):
 # the kernels redesigned for Hopper (mangled-name fragments) and the
 # instructions that show they use the tensor cores and bulk copies: SASS
 # from cuobjdump where the toolkit has it, else PTX from nvcc -ptx
-NEW_KERNELS = ("fa_wgmma_kernel", "gather_bulk_kernel", "gather_staged_kernel")
-SASS_OPS = {"fa_wgmma_kernel": ("HGMMA", "UTMALDG"), "gather_bulk_kernel": ("UBLKCP",)}
+NEW_KERNELS = ("fa_wgmma_kernel", "gather_bulk_kernel", "gather_staged_kernel",
+               "fd_cluster_kernel", "scan_ring_kernel")
+SASS_OPS = {"fa_wgmma_kernel": ("HGMMA", "UTMALDG"), "gather_bulk_kernel": ("UBLKCP",),
+            "fd_cluster_kernel": ("LDGSTS", "HMMA"), "scan_ring_kernel": ("UTMALDG", "UTMASTG")}
 PTX_OPS = {"flash_attention_wgmma.cu": ("wgmma.mma_async", "cp.async.bulk.tensor"),
-           "batch_gather.cu": ("cp.async.bulk.shared", "cp.async.bulk.global")}
+           "batch_gather.cu": ("cp.async.bulk.shared", "cp.async.bulk.global"),
+           "flash_decode_cluster.cu": ("cp.async.cg.shared.global", "mapa",
+                                       "mma.sync.aligned.m16n8k16"),
+           "rglru_scan.cu": ("cp.async.bulk.tensor.3d.shared", "cp.async.bulk.tensor.3d.global")}
 
 
 def ptxas_resources(log):
@@ -298,7 +319,9 @@ def kernel_phase(dev):
         context_4096=timed[LONG_CONTEXT],
     ))
 
-    print("flash_decode vs plain version:")
+    print("flash_decode vs plain version (bf16 D 64/128: cluster kernel; f32: tile kernel):")
+    check(ops._decode_kernel(torch.bfloat16, 128) == "cluster",
+          "the serving path's decode does not route to the cluster kernel")
     c = 160  # the arena: prompt capacity 128 + 32 generated
     cur = torch.tensor([0, 17, 31, 32, 100, c - 1, c, c + 11], dtype=torch.int32, device=dev)
     for dt in (torch.bfloat16, torch.float32):
@@ -307,6 +330,7 @@ def kernel_phase(dev):
         torch.cuda.synchronize()
         compare(f"{dt} q{tuple(q.shape)} cache{tuple(kc.shape)} cur={cur.tolist()}",
                 got, ref.flash_decode(q, kc, vc, cur), TOL[str(dt)])
+    decode_sweep(dev)
     dt = torch.bfloat16
     q, kc, vc = randn(8, 32, 128, dt=dt), randn(8, c, 8, 128, dt=dt), randn(8, c, 8, 128, dt=dt)
     err = compare("timed inputs", ops.flash_decode(q, kc, vc, cur), ref.flash_decode(q, kc, vc, cur), 2e-2)
@@ -323,7 +347,7 @@ def kernel_phase(dev):
     nbytes = 2 * (2 * q.numel() + 2 * used * kh * d) + 4 * cur.numel()
     rows.append(dict(
         name="flash_decode", route="cuda",
-        source="src/repro_torch/kernels/csrc/flash_decode.cu",
+        source="src/repro_torch/kernels/csrc/flash_decode_cluster.cu",
         replaces="src/repro/kernels/flash_decode.py:91",
         max_abs_err=err, ms=t["kernel"], plain_ms=t["plain"],
         **bound(nbytes, 4 * used * h * d, BF16_FLOPS), library_ms=t["library"],
@@ -358,6 +382,56 @@ def kernel_phase(dev):
     check(empty.shape == (0,) and ops.LAUNCHES["csr_dot"] == before, "B = 0 launched a kernel")
     print("  duplicate ids accumulate; B = 0 returns (0,) without a launch")
     return rows
+
+
+def decode_cases():
+    """(T, cur values) for flash_decode's sweep: cur at 0, at both sides of
+    every 64-key tile edge (every split boundary ops._decode_splits can
+    choose is one), at T-1, T and past T; one batch row per value."""
+    for t in DECODE_LENGTHS:
+        edges = [e for c in range(64, t, 64) for e in (c - 1, c)]
+        yield t, sorted({0, *edges, t - 1, t, t + 7})
+
+
+def decode_sweep(dev):
+    """flash_decode against its plain version over DECODE_LENGTHS x
+    DECODE_GROUPS x head dims 64/128 x both dtypes (two KV heads), and at
+    B = 1 (the fewest blocks) at the serving widths; one line per length."""
+    from repro_torch.kernels import ops, ref
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    cases = 0
+    for dt in (torch.bfloat16, torch.float32):
+        for d in (64, 128):
+            for t, curs in decode_cases():
+                b, kh = len(curs), 2
+                cur = torch.tensor(curs, dtype=torch.int32, device=dev)
+                kc, vc = (torch.randn(b, t, kh, d, generator=g, device=dev).to(dt)
+                          for _ in range(2))
+                worst = 0.0
+                for group in DECODE_GROUPS:
+                    q = torch.randn(b, kh * group, d, generator=g, device=dev).to(dt)
+                    got = ops.flash_decode(q, kc, vc, cur)
+                    torch.cuda.synchronize()
+                    worst = max(worst, compare(f"{dt} D={d} T={t} G={group}", got,
+                                               ref.flash_decode(q, kc, vc, cur), TOL[str(dt)],
+                                               show=False))
+                    cases += 1
+                kernel = ops._decode_kernel(dt, d)
+                if kernel == "cluster":
+                    kernel += f", splits/chunk {ops._decode_splits(b, kh, t, sms)}"
+                print(f"  {dt} D={d} T={t} ({kernel}) cur={curs if len(curs) < 12 else '...'}"
+                      f" groups {DECODE_GROUPS}: max_abs_err {worst:.3e} (tol {TOL[str(dt)]:g}) ok")
+        for t in (160, 4096):
+            q = torch.randn(1, 32, 128, generator=g, device=dev).to(dt)
+            kc, vc = (torch.randn(1, t, 8, 128, generator=g, device=dev).to(dt) for _ in range(2))
+            cur = torch.tensor([t - 1], dtype=torch.int32, device=dev)
+            compare(f"{dt} B=1 q{tuple(q.shape)} cache{tuple(kc.shape)} cur=[{t - 1}]",
+                    ops.flash_decode(q, kc, vc, cur), ref.flash_decode(q, kc, vc, cur),
+                    TOL[str(dt)])
+            cases += 1
+    print(f"  {cases} decode cases within tolerance")
 
 
 def gather_kernel_phase(dev):
@@ -460,6 +534,15 @@ def time_gathers(dev, g):
                               else "src/repro/kernels/batch_gather.py:144"),
                     max_abs_err=err, ms=t[name], plain_ms=t["plain"], **bnd,
                     library_ms=t["library"])
+    # K1's latency floor: one launch gathering one row (ids read, then the
+    # row they name: two dependent round trips), alone and as the pair
+    ids = [torch.randint(0, n, (1,), generator=g, device=dev, dtype=torch.int32)
+           for _ in range(50)]
+    it = itertools.cycle(ids)
+    t, _ = time_ms({"features": lambda: ops.batch_gather(x, next(it)),
+                    "pair": lambda: [ops.batch_gather(tb, next(it)) for tb in (x, y)]})
+    print(f"  K1 per-launch latency floor (B = 1 on the DNN tables): device ms per call {t}")
+    rows["batch_gather"]["b1_ms"] = t
     return rows
 
 
@@ -492,6 +575,9 @@ def rglru_kernel_phase(dev):
         a = torch.rand(shape, generator=g, device=dev) * 0.4 + 0.6  # decays as the layer's
         x = torch.randn(shape, generator=g, device=dev)
         dh = torch.randn(shape, generator=g, device=dev)
+        route = ops._scan_kernel(a, x)
+        check(route == ("ring" if shape[2] % 4 == 0 else "lanes"), f"{shape} routes to {route}")
+        print(f"  {shape}: {route} kernel")
         h = ops.rglru_scan(a, x)
         dx, da = ops.rglru_scan_bwd(a, h, dh)
         torch.cuda.synchronize()
@@ -502,6 +588,7 @@ def rglru_kernel_phase(dev):
                                       check_equal(f"backward da {shape}", da, want_da))}
         if not inputs:
             inputs = dict(a=a, x=x, dh=dh, h=h, errs=errs)
+        del a, x, dh, h, dx, da, want_h, want_dx, want_da
     a, x, dh, h = (inputs[k] for k in ("a", "x", "dh", "h"))
     b, t, w = a.shape
     rows = {}
@@ -665,6 +752,9 @@ def serve_phase():
           f"flash_attention launched {launches['flash_attention']} times, want {want_fa}")
     check(launches["flash_decode"] == want_fd,
           f"flash_decode launched {launches['flash_decode']} times, want {want_fd}")
+    entry = ops.ENTRY_LAUNCHES.get("repro_torch_flash_decode_cluster", 0)
+    check(entry == want_fd, f"the cluster kernel ran {entry} of {want_fd} decode launches")
+    print(f"  launches by entry point {ops.ENTRY_LAUNCHES}")
     return launches
 
 
@@ -1075,6 +1165,12 @@ def train_phase(dev):
           f"rglru_scan launched {launches['rglru_scan']} times, want {steps * 2 * rg}")
     check(launches["rglru_scan_bwd"] == steps * rg,
           f"rglru_scan_bwd launched {launches['rglru_scan_bwd']} times, want {steps * rg}")
+    entries = dict(ops.ENTRY_LAUNCHES)
+    print(f"  launches by entry point {entries}")
+    for name, entry in (("rglru_scan", "repro_torch_rglru_scan_ring"),
+                        ("rglru_scan_bwd", "repro_torch_rglru_scan_ring_bwd")):
+        ring = entries.get(entry, 0)
+        check(ring == launches[name], f"the ring kernel ran {ring} of {launches[name]} {name}")
     return launches
 
 
@@ -1121,7 +1217,7 @@ def train_profile_phase(dev, steps=2):
     print(f"profile of {steps} training steps (full width, {n_params:,} parameters, seq 4096): wall "
           f"{1e3 * wall / steps:.1f} ms/step, device busy {1e-3 * busy_us / steps:.1f} ms/step, "
           f"{calls / steps:.0f} device ops/step, busy share {1e-6 * busy_us / wall:.3f}")
-    classes = {"GEMM": ("nvjet", "gemm", "cutlass", "xmma"), "rglru_scan": ("rglru_scan",),
+    classes = {"GEMM": ("nvjet", "gemm", "cutlass", "xmma"), "rglru_scan": ("rglru_scan", "scan_ring"),
                "softmax/reduce": ("softmax", "reduce")}
     split = dict.fromkeys(classes, 0.0)
     split["other elementwise and copies"] = 0.0
@@ -1132,7 +1228,7 @@ def train_profile_phase(dev, steps=2):
     print("  device ms/step by class: " + ", ".join(
         f"{c} {v / steps / 1e3:.1f} ({v / busy_us:.3f})" for c, v in split.items()))
     top = sorted(events, key=lambda e: -e.self_device_time_total)
-    for e in top[:12] + [e for e in top[12:] if "rglru" in e.key]:
+    for e in top[:12] + [e for e in top[12:] if "rglru" in e.key or "scan_ring" in e.key]:
         print(f"  {e.self_device_time_total / steps / 1e3:9.3f} ms/step "
               f"{e.count // steps:5d} calls/step  {e.key[:100]}")
     del state
@@ -1193,7 +1289,7 @@ def main() -> int:
     for name in ("rglru_scan", "rglru_scan_bwd"):
         rows.append(dict(scans[name], launches=train_launches[name]))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms", "context_4096")
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "context_4096", "b1_ms")
     print(json.dumps({"kernels": [{k: row[k] for k in keys if k in row} for row in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

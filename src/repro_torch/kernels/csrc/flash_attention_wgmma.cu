@@ -326,29 +326,6 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   }
 }
 
-// cuTensorMapEncodeTiled, looked up at run time through libcudart
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-static EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                              &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
-  }
-  return fn;
-}
-
 // 4-D bf16 map of a contiguous (B, rows, heads, D) tensor, box (64 dims,
 // box_heads, box_rows, 1) in the 128-byte swizzle; out of range reads 0
 static bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int b, int rows, int heads,
@@ -367,8 +344,9 @@ template <int D>
 static int launch(const void* q, const void* k, const void* v, void* o, int b, int s_len,
                   int t_len, int n_heads, int n_kv_heads, int group_log2, int causal,
                   cudaStream_t stream) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
+  EncodeTiled fn;
+  cudaError_t err = get_encode_tiled(&fn);
+  if (err != cudaSuccess) return (int)err;
   const int group = 1 << group_log2;
   CUtensorMap tq, tk, tv;
   if (!encode(fn, &tq, q, b, s_len, n_heads, D, group, kM / group) ||
@@ -376,8 +354,8 @@ static int launch(const void* q, const void* k, const void* v, void* o, int b, i
       !encode(fn, &tv, v, b, t_len, n_kv_heads, D, 1, kN))
     return (int)cudaErrorInvalidValue;
   const int smem = (int)(D / 64 * kBoxBytes * (1 + 2 * kSlots) + 8 * (1 + kSlots) + 1024);
-  cudaError_t err = cudaFuncSetAttribute(fa_wgmma_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  err = cudaFuncSetAttribute(fa_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
   if (err != cudaSuccess) return (int)err;
   const int rows_pos = kM / group;
   const dim3 grid((unsigned)((s_len + rows_pos - 1) / rows_pos), (unsigned)n_kv_heads,

@@ -1,4 +1,6 @@
-// flash_decode: one-token GQA attention against a per-row KV cache.
+// flash_decode: one-token GQA attention against a per-row KV cache, for
+// the calls flash_decode_cluster.cu does not take (f32, and head dims
+// other than 64 and 128; kernels/ops.py routes).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_decode.py
 // (flash_decode, pallas_call at :91), which computes
@@ -19,7 +21,6 @@
 // advancing the positions of idle slots past the arena's end, and such a
 // row attends the whole cache without reading past T. The T edge is
 // masked here (the arena length prompt_capacity + gen is arbitrary).
-// Split-KV across blocks, wgmma and TMA are later work.
 #include "attention_tile.cuh"
 
 namespace repro_torch {

@@ -6,7 +6,8 @@ raises: there is no fallback.  Each wrapper validates device, dtype,
 shape and contiguity, allocates its output, launches on PyTorch's
 current stream and checks ``cudaGetLastError``; ``LAUNCHES`` counts the
 kernel launches only, so a run can prove its main path went through the
-kernels.
+kernels, and ``ENTRY_LAUNCHES`` splits them by the C entry point that a
+wrapper with two kernels routed them to.
 """
 from __future__ import annotations
 
@@ -21,19 +22,23 @@ LAUNCHES: Dict[str, int] = {
     "batch_gather": 0, "batch_gather_dma": 0,
     "rglru_scan": 0, "rglru_scan_bwd": 0,
 }
+ENTRY_LAUNCHES: Dict[str, int] = {}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HEAD_DIM = 128  # kMaxD in csrc/attention_tile.cuh
 _WGMMA_HEAD_DIMS = (64, 128)  # csrc/flash_attention_wgmma.cu
 _WGMMA_ROWS = 64              # its query tile: the group must divide it
-_MAX_GROUP = 16      # kMaxGroup in csrc/flash_decode.cu
+_MAX_GROUP = 16      # kMaxGroup in csrc/flash_decode.cu and flash_decode_cluster.cu
+_DECODE_TILE = 64    # kTile in csrc/flash_decode_cluster.cu: a slice is whole tiles
+_MAX_SPLITS = 8      # its largest cluster (the portable size)
 _GATHER_DTYPES = (torch.float32, torch.bfloat16, torch.int32)
-_MAX_GRID_Y = 65535  # rglru_scan's grid.y is the batch
+_MAX_GRID_Y = 65535  # the batch on grid.y (rglru_scan) or grid.z (flash_decode_cluster)
 
 
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    ENTRY_LAUNCHES.clear()
 
 
 def _on_cpu(name: str, *tensors: torch.Tensor) -> bool:
@@ -71,6 +76,7 @@ def _launch(name: str, fn, *args) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
     LAUNCHES[name] += 1
+    ENTRY_LAUNCHES[fn] = ENTRY_LAUNCHES.get(fn, 0) + 1
 
 
 def _attention_kernel(dtype: torch.dtype, d: int, group: int) -> str:
@@ -114,10 +120,33 @@ def flash_attention(q, k, v, causal: bool = True):
     return out
 
 
+def _decode_kernel(dtype: torch.dtype, d: int) -> str:
+    """Which CUDA kernel serves a ``flash_decode`` call: ``"cluster"``
+    (split-KV over a thread-block cluster, ``flash_decode_cluster.cu``)
+    for bf16 with head dim 64 or 128; ``"tile"`` (``flash_decode.cu``)
+    for everything else, f32 included."""
+    return "cluster" if dtype == torch.bfloat16 and d in (64, 128) else "tile"
+
+
+def _decode_splits(b: int, kv_heads: int, t: int, sms: int) -> tuple:
+    """``(splits, chunk)`` for the cluster kernel: each (row, KV head)'s
+    T positions are cut into ``splits`` slices of ``chunk`` positions
+    (whole 64-key tiles), one block each.  Enough splits that the
+    ``B·K·splits`` blocks cover the card's ``sms`` SMs, and enough that no
+    block walks more than 8 tiles where 8 splits allow; at most 8 (the
+    cluster's limit) and at most one a tile."""
+    tiles = -(-t // _DECODE_TILE)
+    cover = -(-sms // max(1, b * kv_heads))
+    n = max(1, min(_MAX_SPLITS, tiles, max(cover, -(-tiles // _MAX_SPLITS))))
+    per = -(-tiles // n)
+    return -(-tiles // per), per * _DECODE_TILE
+
+
 def flash_decode(q, k_cache, v_cache, cur_index):
     """q: (B,H,D); caches: (B,T,K,D); cur_index: (B,) int32 >= 0.
     Attends to cache positions <= cur_index[b]; cur_index[b] >= T attends
-    the whole cache.  Returns (B,H,D)."""
+    the whole cache.  Returns (B,H,D).  On the card, ``_decode_kernel``
+    picks the kernel from dtype and D."""
     if q.dim() != 3 or k_cache.dim() != 4 or k_cache.shape != v_cache.shape:
         raise ValueError(
             f"flash_decode: shapes {q.shape}, {k_cache.shape}, {v_cache.shape}"
@@ -141,13 +170,18 @@ def flash_decode(q, k_cache, v_cache, cur_index):
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    ptrs = (q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), cur_index.data_ptr(),
+            out.data_ptr(), b, t, h, kh, d)
     with torch.cuda.device(q.device):
-        _launch(
-            "flash_decode", "repro_torch_flash_decode",
-            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            cur_index.data_ptr(), out.data_ptr(), b, t, h, kh, d, code,
-            torch.cuda.current_stream().cuda_stream,
-        )
+        stream = torch.cuda.current_stream().cuda_stream
+        if _decode_kernel(q.dtype, d) == "cluster":
+            if b > _MAX_GRID_Y or kh > _MAX_GRID_Y:
+                raise ValueError(f"flash_decode: batch {b} or {kh} KV heads exceed {_MAX_GRID_Y}")
+            sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+            _launch("flash_decode", "repro_torch_flash_decode_cluster", *ptrs,
+                    *_decode_splits(b, kh, t, sms), stream)
+        else:
+            _launch("flash_decode", "repro_torch_flash_decode", *ptrs, code, stream)
     return out
 
 
@@ -266,17 +300,34 @@ def _check_scan_shapes(name, *tensors) -> None:
                          f"{[tuple(t.shape) for t in tensors]}")
 
 
-def _scan_launch(name, fn, ins, outs):
+def _scan_kernel(*tensors: torch.Tensor) -> str:
+    """Which CUDA kernel serves a scan call on these contiguous f32
+    operands: ``"ring"`` (TMA ring, ``scan_ring_kernel``) where a tensor
+    map can describe them — W a multiple of 4 (16-byte rows) and every
+    operand 16-byte aligned; ``"lanes"`` (the thread-per-channel
+    ``rglru_scan_kernel``) otherwise."""
+    w = tensors[0].shape[-1]
+    if w % 4 == 0 and all(x.data_ptr() % 16 == 0 for x in tensors):
+        return "ring"
+    return "lanes"
+
+
+def _scan_launch(name, lanes_fn, ring_fn, ins, outs):
     """Launch a scan kernel on contiguous f32 operands (the wrappers cast
-    as the Pallas wrapper does) into f32 outputs."""
+    as the Pallas wrapper does) into f32 outputs: ``ring_fn`` or
+    ``lanes_fn``, as ``_scan_kernel`` picks."""
     b, t, w = ins[0].shape
     if b > _MAX_GRID_Y:
         raise ValueError(f"{name}: batch {b} exceeds {_MAX_GRID_Y}")
     if outs[0].numel() == 0:
         return
+    ptrs = [x.data_ptr() for x in ins + outs]
     with torch.cuda.device(ins[0].device):
-        _launch(name, fn, *(x.data_ptr() for x in ins + outs), b, t, w,
-                torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if _scan_kernel(*ins, *outs) == "ring":
+            _launch(name, ring_fn, *ptrs, b, t, w, stream)
+        else:
+            _launch(name, lanes_fn, *ptrs, b, t, w, stream)
 
 
 def rglru_scan(a, x):
@@ -287,7 +338,8 @@ def rglru_scan(a, x):
         return ref.rglru_scan(a, x)
     a, x = a.float().contiguous(), x.float().contiguous()
     h = torch.empty_like(x)
-    _scan_launch("rglru_scan", "repro_torch_rglru_scan", [a, x], [h])
+    _scan_launch("rglru_scan", "repro_torch_rglru_scan", "repro_torch_rglru_scan_ring",
+                 [a, x], [h])
     return h
 
 
@@ -301,13 +353,14 @@ def rglru_scan_bwd(a, h, dh):
         return ref.rglru_scan_bwd(a, h, dh)
     a, h, dh = (t.float().contiguous() for t in (a, h, dh))
     dx, da = torch.empty_like(dh), torch.empty_like(dh)
-    _scan_launch("rglru_scan_bwd", "repro_torch_rglru_scan_bwd", [a, h, dh], [dx, da])
+    _scan_launch("rglru_scan_bwd", "repro_torch_rglru_scan_bwd",
+                 "repro_torch_rglru_scan_ring_bwd", [a, h, dh], [dx, da])
     return dx, da
 
 
 class RGLRUScan(torch.autograd.Function):
     """``rglru_scan`` under autograd: the forward saves ``a`` and ``h``,
-    the backward is ``rglru_scan_bwd`` (on the card, the same kernel run
+    the backward is ``rglru_scan_bwd`` (on the card, the same kernels run
     in reverse; on the CPU, both plain versions).  Gradients come back in
     the inputs' dtypes."""
 

@@ -9,11 +9,14 @@ installed:
 Tolerances for attention are those of ``tests/test_kernels.py``: 2e-5
 in f32, 2e-2 in bf16.  bf16 attention with head dim 64 or 128 and a group
 dividing 64 runs the tensor-core kernel (``flash_attention_wgmma.cu``),
-the rest the CUDA-core one (``flash_attention.cu``).  ``csr_dot`` is bit-exact against ``ref.csr_dot``,
+the rest the CUDA-core one (``flash_attention.cu``); bf16 decode with head
+dim 64 or 128 runs the split-KV cluster kernel (``flash_decode_cluster.cu``),
+f32 decode the tile kernel (``flash_decode.cu``).  ``csr_dot`` is bit-exact against ``ref.csr_dot``,
 which sums in the kernel's order; both gathers copy bytes and are
 bit-exact against ``ref.batch_gather``.  The scan (``rglru_scan`` and its
 backward ``rglru_scan_bwd``) is bit-exact against ``ref.rglru_scan`` /
-``ref.rglru_scan_bwd``, which step through time as the kernel does.
+``ref.rglru_scan_bwd``, which step through time as the kernels do, on
+the TMA ring kernel (W % 4 == 0) and the lanes kernel (the rest).
 """
 import pytest
 import torch
@@ -82,6 +85,55 @@ def test_flash_decode_kernel_on_card(cuda, dt):
     got = ops.flash_decode(q, k, v, cur)
     want = ref.flash_decode(q, k, v, cur)
     torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dt], atol=TOL[dt])
+
+
+def _decode_curs(t):
+    """cur at 0, at both sides of every 64-key tile edge (every split
+    boundary of the cluster kernel is one), T-1, T and past T."""
+    edges = [e for c in range(64, t, 64) for e in (c - 1, c)]
+    return sorted({0, *edges, t - 1, t, t + 7})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("group", [1, 4, 8, 16])
+@pytest.mark.parametrize("t", [1, 32, 33, 160, 4096])
+def test_flash_decode_sweep_on_card(cuda, t, group, d, dt):
+    """Both decode kernels against the plain version over arena lengths,
+    groups, head dims and cur at every split boundary; one launch a call,
+    bf16 on the cluster kernel."""
+    curs = _decode_curs(t)
+    b, kh = len(curs), 2
+    g = torch.Generator(device=cuda).manual_seed(t + group + d)
+    q = torch.randn(b, kh * group, d, generator=g, device=cuda).to(dt)
+    k, v = (torch.randn(b, t, kh, d, generator=g, device=cuda).to(dt) for _ in range(2))
+    cur = torch.tensor(curs, dtype=torch.int32, device=cuda)
+    ops.reset_launch_counts()
+    got = ops.flash_decode(q, k, v, cur)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), ref.flash_decode(q, k, v, cur).float(),
+                               rtol=TOL[dt], atol=TOL[dt])
+    entry = {torch.bfloat16: "repro_torch_flash_decode_cluster",
+             torch.float32: "repro_torch_flash_decode"}[dt]
+    assert ops.LAUNCHES["flash_decode"] == 1 and ops.ENTRY_LAUNCHES == {entry: 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("t", [1, 160, 4096])
+def test_flash_decode_one_row_on_card(cuda, t, dt):
+    """B = 1 at the serving widths (the fewest blocks): every cur value of
+    a short arena, the last position of the others."""
+    g = torch.Generator(device=cuda).manual_seed(t)
+    q = torch.randn(1, 32, 128, generator=g, device=cuda).to(dt)
+    k, v = (torch.randn(1, t, 8, 128, generator=g, device=cuda).to(dt) for _ in range(2))
+    for c in (range(t + 2) if t <= 160 else (t - 1,)):
+        cur = torch.tensor([c], dtype=torch.int32, device=cuda)
+        got = ops.flash_decode(q, k, v, cur)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), ref.flash_decode(q, k, v, cur).float(),
+                                   rtol=TOL[dt], atol=TOL[dt])
 
 
 @pytest.mark.gpu
@@ -190,11 +242,19 @@ def test_batch_gather_dma_many_rounds_on_card_bit_exact(cuda):
     assert torch.equal(got, ref.batch_gather(table, idx, 1))
 
 
+# the training path's shape, a ragged one, T = 1, a long T that wraps the
+# ring many times and is no multiple of its 128-step tile, W no multiple of
+# the 32-channel strip with B > 1 (T over and under one tile), and
+# W % 4 != 0 (the lanes kernel)
+SCAN_CASES = [(1, 4096, 2560), (3, 1000, 2560 + 96), (2, 1, 40), (1, 33, 1),
+              (1, 16385, 2560), (3, 130, 2568), (3, 65, 44), (2, 77, 2562), (4, 64, 4)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,t,w", [(1, 4096, 2560), (3, 1000, 2560 + 96), (2, 1, 40), (1, 33, 1)])
+@pytest.mark.parametrize("b,t,w", SCAN_CASES)
 def test_rglru_scan_kernels_on_card_bit_exact(cuda, b, t, w):
     """Forward and reverse against the plain versions, bit for bit, at the
-    training path's shape, a ragged one and T = 1; through ops.RGLRUScan,
+    training path's shape, ragged ones and T = 1; through ops.RGLRUScan,
     one launch of each per step of autograd."""
     g = torch.Generator(device=cuda).manual_seed(b + t + w)
     a = torch.rand(b, t, w, generator=g, device=cuda) * 0.4 + 0.6
@@ -214,3 +274,65 @@ def test_rglru_scan_kernels_on_card_bit_exact(cuda, b, t, w):
     assert torch.equal(tx.grad, dx) and torch.equal(ta.grad, da)
     assert ops.LAUNCHES["rglru_scan"] == before["rglru_scan"] + 2
     assert ops.LAUNCHES["rglru_scan_bwd"] == before["rglru_scan_bwd"] + 2
+    route = "ring" if w % 4 == 0 else "lanes"
+    assert ops._scan_kernel(a, x) == route
+
+
+def _tma_calls(cuda):
+    """The two TMA kernels (wgmma attention, the scan's ring both ways) on
+    fixed inputs: a function returning their outputs."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q = torch.randn(1, 128, 32, 128, generator=g, device=cuda).to(torch.bfloat16)
+    k, v = (torch.randn(1, 128, 8, 128, generator=g, device=cuda).to(torch.bfloat16)
+            for _ in range(2))
+    a = torch.rand(2, 300, 2560, generator=g, device=cuda) * 0.4 + 0.6
+    x, dh = (torch.randn(2, 300, 2560, generator=g, device=cuda) for _ in range(2))
+    h = ref.rglru_scan(a, x)
+
+    def run():
+        return (ops.flash_attention(q, k, v), ops.rglru_scan(a, x), *ops.rglru_scan_bwd(a, h, dh))
+    return run
+
+
+@pytest.mark.gpu
+def test_tma_launchers_in_a_new_thread_and_a_cuda_graph(cuda):
+    """The TMA launchers encode tensor maps on the host: from a thread that
+    has made no CUDA call yet (as autograd's backward thread) and while a
+    stream is captured into a CUDA graph, they launch and give the eager
+    outputs bit for bit."""
+    import threading
+
+    run = _tma_calls(cuda)
+    assert ops._attention_kernel(torch.bfloat16, 128, 4) == "wgmma"
+    want = run()
+    torch.cuda.synchronize()
+    got = {}
+
+    def worker():
+        try:
+            got["out"] = run()
+            torch.cuda.synchronize()
+        except Exception as e:  # surfaced by the assert below
+            got["err"] = e
+
+    t = threading.Thread(target=worker)
+    t.start()
+    t.join()
+    assert "err" not in got, got.get("err")
+    assert all(torch.equal(p, r) for p, r in zip(got["out"], want))
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        run()  # warm-up outside the capture, as torch.cuda.graph asks
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    ops.reset_launch_counts()
+    with torch.cuda.graph(graph):
+        outs = run()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(p, r) for p, r in zip(outs, want))
+    assert ops.ENTRY_LAUNCHES == {"repro_torch_flash_attention_wgmma": 1,
+                                  "repro_torch_rglru_scan_ring": 1,
+                                  "repro_torch_rglru_scan_ring_bwd": 1}

@@ -107,6 +107,22 @@ def test_flash_decode_ignores_entries_past_cur():
     torch.testing.assert_close(ops.flash_decode(q, k2, v2, cur), a, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_every_cur_matches_pallas_kernel(dtype):
+    """One batch row per cur in 0..T+2 (every position, the last, and past
+    the arena): the plain decode against the Pallas kernel in interpret
+    mode, two 16-key blocks."""
+    t = 32
+    rng = np.random.default_rng(t)
+    b = t + 3
+    qj, q = _pair(rng, (b, 4, 32), dtype)
+    kj, k = _pair(rng, (b, t, 1, 32), dtype)
+    vj, v = _pair(rng, (b, t, 1, 32), dtype)
+    cur = np.arange(b, dtype=np.int32)
+    want = jops.flash_decode(qj, kj, vj, jnp.asarray(cur), block_k=16, interpret=True)
+    _close(ops.flash_decode(q, k, v, torch.from_numpy(cur)), want, dtype)
+
+
 # ----------------------------------------------------------------- dispatch
 
 
@@ -189,3 +205,60 @@ def test_check_cuda_rejects_what_the_attention_kernels_do_not_take():
 def test_wrapper_argument_checks(call, error):
     with pytest.raises((ValueError, TypeError), match=error):
         call()
+
+
+@pytest.mark.parametrize("dtype,d,kernel", [
+    (torch.bfloat16, 128, "cluster"),  # granite-3-8b's decode
+    (torch.bfloat16, 64, "cluster"),
+    (torch.bfloat16, 96, "tile"),
+    (torch.bfloat16, 32, "tile"),
+    (torch.float32, 128, "tile"),
+    (torch.float32, 64, "tile"),
+])
+def test_decode_kernel_routing(dtype, d, kernel):
+    assert ops._decode_kernel(dtype, d) == kernel
+
+
+@pytest.mark.parametrize("b,kh,t,sms,want", [
+    (8, 8, 160, 132, (3, 64)),    # the serving shape: 192 blocks, one tile each
+    (1, 8, 160, 132, (3, 64)),    # B = 1: as many splits as tiles
+    (8, 8, 4096, 132, (8, 512)),  # long context: at most 8 tiles a block
+    (64, 8, 160, 132, (1, 192)),  # enough rows to cover the SMs unsplit
+    (8, 8, 33, 132, (1, 64)),     # one tile
+    (1, 1, 1, 132, (1, 64)),
+    (8, 8, 1024, 132, (3, 384)),
+])
+def test_decode_splits(b, kh, t, sms, want):
+    assert ops._decode_splits(b, kh, t, sms) == want
+
+
+@pytest.mark.parametrize("b,kh", [(1, 1), (1, 8), (8, 8), (3, 2), (200, 8)])
+@pytest.mark.parametrize("t", [1, 32, 33, 64, 65, 160, 511, 4096, 100_000])
+def test_decode_splits_cover_the_cache(b, kh, t):
+    """Every split is whole 64-key tiles, the slices cover T and none lies
+    wholly past it, at most 8 (the cluster's limit) and at most one a tile,
+    and no block walks more than 8 tiles unless 8 splits cannot cover T so."""
+    splits, chunk = ops._decode_splits(b, kh, t, 132)
+    tiles = -(-t // 64)
+    assert 1 <= splits <= min(8, tiles) and chunk % 64 == 0
+    assert (splits - 1) * chunk < t <= splits * chunk
+    assert chunk // 64 <= max(8, -(-tiles // 8))
+
+
+def test_scan_kernel_routing():
+    """The ring kernel where a tensor map describes every operand (W % 4 ==
+    0, 16-byte aligned); the lanes kernel otherwise (W 1, 40-wide rows off
+    a 16-byte boundary, W % 4 != 0)."""
+    a = torch.zeros(2, 5, 40)
+    assert ops._scan_kernel(a, torch.zeros_like(a)) == "ring"
+    assert ops._scan_kernel(torch.zeros(1, 33, 1), torch.zeros(1, 33, 1)) == "lanes"
+    assert ops._scan_kernel(torch.zeros(2, 77, 2562), torch.zeros(2, 77, 2562)) == "lanes"
+    shifted = torch.zeros(2 * 5 * 40 + 1)[1:].view(2, 5, 40)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    assert ops._scan_kernel(a, shifted) == "lanes"
+
+
+def test_reset_clears_launches_by_entry_point():
+    ops.ENTRY_LAUNCHES["repro_torch_flash_decode_cluster"] = 3
+    ops.reset_launch_counts()
+    assert ops.ENTRY_LAUNCHES == {} and set(ops.LAUNCHES.values()) == {0}

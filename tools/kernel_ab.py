@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Time the redesigned kernels of two source trees on one card, in turns.
 
-    python3 tools/kernel_ab.py OLD_ROOT NEW_ROOT
+    python3 tools/kernel_ab.py OLD_ROOT NEW_ROOT [--kernels gather,attention,decode,scan]
 
 Each turn is a fresh process that builds the kernels of one tree
 (``<root>/src``, into ``<root>/build/``) and times, with
-``chip_smoke.time_ms`` (CUDA graphs, CUDA events):
+``chip_smoke.time_ms`` (CUDA graphs, CUDA events), the kernel groups
+``--kernels`` names (all four by default):
 
 - ``batch_gather_dma`` at the DNN path's shape (the pair of launches of
   one ``DeviceTable.batch``: B = 100 of a (1281160, 32) f32 table and a
@@ -14,15 +15,25 @@ Each turn is a fresh process that builds the kernels of one tree
   ``index_select``;
 - ``flash_attention`` in bf16, causal, q (1,S,32,128), k/v (1,S,8,128) at
   S = 128 (the serving prefill) and 4,096 (granite-3-8b's context),
-  against ``scaled_dot_product_attention``.
+  against ``scaled_dot_product_attention``;
+- ``flash_decode`` at the serving shape (q (8,32,128), caches
+  (8,160,8,128) bf16, chip_smoke's eight ``cur`` values), against
+  ``scaled_dot_product_attention`` with the position mask;
+- ``rglru_scan`` and ``rglru_scan_bwd`` at the training path's shape
+  (1, 4096, 2560) f32 (no library call computes a linear recurrence).
 
-Each turn also profiles (``torch.profiler``, device time per launch over
-200 eager launches) ``batch_gather_dma`` on the DNN path's two tables at
-rows_per_step 1, 8 and 100, and ``batch_gather`` beside it.
+The gather group also profiles (``torch.profiler``, device time per
+launch over 200 eager launches) ``batch_gather_dma`` on the DNN path's
+two tables at rows_per_step 1, 8 and 100, and ``batch_gather`` beside it.
 
 The turns run OLD, NEW, NEW, OLD; each prints one JSON line, and the
 script prints every tree's medians at the end. Unpack the older tree with
-``git archive`` into a directory ``.gitignore`` lists (``build/``).
+``git archive`` into a directory ``.gitignore`` lists, copy the checkout
+with it to the machine with the card, and run from the repository's root
+there (about two minutes for ``--kernels decode,scan``):
+
+    mkdir -p build/parent && git archive HEAD | tar -x -C build/parent
+    python3 tools/kernel_ab.py build/parent . --kernels decode,scan
 """
 from __future__ import annotations
 
@@ -35,12 +46,9 @@ import sys
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def turn(root: str) -> dict:
+def turn(root: str, groups) -> dict:
     """One tree's timings, in this process (called in a child)."""
-    import itertools
-
     import torch
-    import torch.nn.functional as F
 
     sys.path.insert(0, os.path.join(root, "src"))
     sys.path.insert(0, HERE)
@@ -49,8 +57,18 @@ def turn(root: str) -> dict:
 
     build.library()
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(0)
     out = {"root": root}
+    for name in groups:
+        g = torch.Generator(device=dev).manual_seed(0)
+        GROUPS[name](chip_smoke, ops, dev, g, out)
+        torch.cuda.empty_cache()
+    return out
+
+
+def time_gather(chip_smoke, ops, dev, g, out):
+    import itertools
+
+    import torch
 
     n = 20 * (chip_smoke.IMAGENET_ROWS // 20)
     x = torch.randn(n, 32, generator=g, device=dev)
@@ -83,6 +101,11 @@ def turn(root: str) -> dict:
         torch.randint(0, n, (100,), generator=g, device=dev, dtype=torch.int32)
         for _ in range(50)])
 
+
+def time_attention(chip_smoke, ops, dev, g, out):
+    import torch
+    import torch.nn.functional as F
+
     for s in (128, 4096):
         q = torch.randn(1, s, 32, 128, generator=g, device=dev).bfloat16()
         k, v = (torch.randn(1, s, 8, 128, generator=g, device=dev).bfloat16() for _ in range(2))
@@ -96,7 +119,44 @@ def turn(root: str) -> dict:
         }, n=50 if s == 128 else 10)
         t["max_abs_err_vs_library"] = err
         out[f"flash_attention S={s}"] = t
-    return out
+
+
+def time_decode(chip_smoke, ops, dev, g, out):
+    import torch
+    import torch.nn.functional as F
+
+    c = 160
+    q = torch.randn(8, 32, 128, generator=g, device=dev).bfloat16()
+    kc, vc = (torch.randn(8, c, 8, 128, generator=g, device=dev).bfloat16() for _ in range(2))
+    cur = torch.tensor([0, 17, 31, 32, 100, c - 1, c, c + 11], dtype=torch.int32, device=dev)
+    q4 = q[:, :, None]
+    kt, vt = (z.transpose(1, 2).contiguous() for z in (kc, vc))
+    mask = (torch.arange(c, device=dev)[None, :] <= cur[:, None])[:, None, None, :]
+
+    def library():
+        return F.scaled_dot_product_attention(q4, kt, vt, attn_mask=mask, enable_gqa=True)
+
+    err = float((ops.flash_decode(q, kc, vc, cur).float() - library()[:, :, 0].float()).abs().max())
+    t, _ = chip_smoke.time_ms({"kernel": lambda: ops.flash_decode(q, kc, vc, cur),
+                               "library": library})
+    t["max_abs_err_vs_library"] = err
+    out["flash_decode serving"] = t
+
+
+def time_scan(chip_smoke, ops, dev, g, out):
+    import torch
+
+    shape = (1, 4096, 2560)
+    a = torch.rand(shape, generator=g, device=dev) * 0.4 + 0.6
+    x, dh = (torch.randn(shape, generator=g, device=dev) for _ in range(2))
+    h = ops.rglru_scan(a, x)
+    t, _ = chip_smoke.time_ms({"forward": lambda: ops.rglru_scan(a, x),
+                               "backward": lambda: ops.rglru_scan_bwd(a, h, dh)}, n=20)
+    out["rglru_scan"] = t
+
+
+GROUPS = {"gather": time_gather, "attention": time_attention, "decode": time_decode,
+          "scan": time_scan}
 
 
 def profile_gathers(ops, x, y, ids, reps=200):
@@ -127,10 +187,13 @@ def profile_gathers(ops, x, y, ids, reps=200):
 
 
 def main(argv) -> int:
-    if len(argv) == 3 and argv[1] == "--turn":
-        print("TURN " + json.dumps(turn(argv[2])), flush=True)
+    if len(argv) == 4 and argv[1] == "--turn":
+        print("TURN " + json.dumps(turn(argv[2], argv[3].split(","))), flush=True)
         return 0
-    if len(argv) != 3:
+    groups = ",".join(GROUPS)
+    if len(argv) == 5 and argv[3] == "--kernels":
+        groups, argv = argv[4], argv[:3]
+    if len(argv) != 3 or not set(groups.split(",")) <= set(GROUPS):
         print(__doc__, file=sys.stderr)
         return 2
     old, new = (os.path.abspath(a) for a in argv[1:])
@@ -139,7 +202,7 @@ def main(argv) -> int:
     print(smi, flush=True)
     results = {old: [], new: []}
     for root in (old, new, new, old):
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--turn", root],
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--turn", root, groups],
                               capture_output=True, text=True, timeout=900)
         lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("TURN ")]
         if proc.returncode != 0 or not lines:
@@ -153,7 +216,8 @@ def main(argv) -> int:
         for key in runs[0]:
             if key == "root":
                 continue
-            cols = {c: statistics.median(r[key][c] for r in runs) for c in runs[0][key]}
+            cols = {c: statistics.median(r[key][c] for r in runs) for c in runs[0][key]
+                    if isinstance(runs[0][key][c], (int, float))}
             print(f"  {key}: " + ", ".join(f"{c} {v:.6f}" for c, v in cols.items()))
     print("(times in ms per call; 'per-launch device us' in microseconds per launch)")
     return 0
