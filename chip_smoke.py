@@ -19,8 +19,8 @@
    of every 64-key tile edge (every split boundary), T-1, T and past T,
    and B = 1; ``csr_dot``
    bit-exact (``torch.equal``) with both ``gather`` values at the SVM
-   path's shape, a kddcup10-like one, a ragged B, duplicate ids and
-   B = 0 (no launch).  Times the attention kernels, their plain versions
+   path's shape, a ragged B and K with the same w, a kddcup10-like one, a
+   ragged B, duplicate ids and B = 0 (no launch).  Times the attention kernels, their plain versions
    and one PyTorch library call (``scaled_dot_product_attention``, a
    yardstick only: the port never calls it) and computes the least time
    the card could take; ``flash_attention`` also at granite-3-8b's
@@ -47,16 +47,20 @@
 8. Holds ``batch_gather`` and ``batch_gather_dma`` bit-exact against
    their plain version (f32/bf16/int32, rows_per_block 1-8,
    rows_per_step 1/8/16, ragged B, duplicate and out-of-range ids, B = 0
-   without a launch) and times them, their plain version and
-   ``index_select`` at the DNN path's shape and a 2 GiB bandwidth shape
-   (this runs right after step 3); times one ``batch_gather`` launch at
-   B = 1 on the DNN tables, K1's per-launch latency floor.
+   without a launch), and ``batch_gather_tables`` (three tables, one
+   launch) on both of its routes, host ids in the launch's parameters and
+   ids loaded by the kernel, around the 960-id cap; times them, their
+   plain version and ``index_select`` at the DNN path's shape (K1 one
+   launch for the pair) and a 2 GiB bandwidth shape (this runs right
+   after step 3); times K1 at B = 1 on the DNN tables, its per-launch
+   latency floor.
 9. Trains the paper's DNN workload (Tables 6-7) through
    ``repro_torch.dnn.convergence`` at ImageNet-1k's row count (1,281,160
    rows of 32 f32 features held on the card, vgg-like MLP, batch 100):
    TFIP with a 10,000 queue against LIRS, one epoch each, every batch
-   gathered by ``batch_gather``; checks the rows consumed, two launches a
-   step, the falling validation loss and LIRS's higher test accuracy;
+   gathered by one ``batch_gather`` launch for features and labels, the
+   ids in its parameters; checks the rows consumed, one launch a step, the
+   falling validation loss and LIRS's higher test accuracy;
    replays LIRS's first epoch with ``batch_gather_dma`` against the same
    step losses; checks one epoch of both shufflers' batches, gathered by
    both kernels, against ``xs[idx]`` on the host; prints the host time of
@@ -208,14 +212,19 @@ def time_ms(fns, n=50, rounds=3):
 # instructions that show they use the tensor cores and bulk copies: SASS
 # from cuobjdump where the toolkit has it, else PTX from nvcc -ptx
 NEW_KERNELS = ("fa_wgmma_kernel", "gather_bulk_kernel", "gather_staged_kernel",
-               "fd_cluster_kernel", "scan_ring_kernel")
+               "fd_cluster_kernel", "scan_ring_kernel", "gather_tables_kernel",
+               "csr_dot_kernel")
 SASS_OPS = {"fa_wgmma_kernel": ("HGMMA", "UTMALDG"), "gather_bulk_kernel": ("UBLKCP",),
-            "fd_cluster_kernel": ("LDGSTS", "HMMA"), "scan_ring_kernel": ("UTMALDG", "UTMASTG")}
+            "fd_cluster_kernel": ("LDGSTS", "HMMA"), "scan_ring_kernel": ("UTMALDG", "UTMASTG"),
+            "gather_tables_kernel": ("LDC",)}
 PTX_OPS = {"flash_attention_wgmma.cu": ("wgmma.mma_async", "cp.async.bulk.tensor"),
            "batch_gather.cu": ("cp.async.bulk.shared", "cp.async.bulk.global"),
            "flash_decode_cluster.cu": ("cp.async.cg.shared.global", "mapa",
                                        "mma.sync.aligned.m16n8k16"),
            "rglru_scan.cu": ("cp.async.bulk.tensor.3d.shared", "cp.async.bulk.tensor.3d.global")}
+# csr_dot's evict-first stream (PTX in every run: SASS names no policy)
+POLICY_PTX = {"csr_dot.cu": ("createpolicy.fractional.L2::evict_first",
+                             "ld.global.nc.L2::cache_hint")}
 
 
 def ptxas_resources(log):
@@ -247,6 +256,15 @@ def instruction_counts(lib):
 
     cuobjdump = shutil.which("cuobjdump") or os.path.join(
         os.path.dirname(build._nvcc()), "cuobjdump")
+    def ptx_counts(table, why):
+        for src, ops in table.items():
+            ptx = subprocess.run([build._nvcc(), *build.ARCH_FLAGS, "-std=c++17", "-ptx", "-o",
+                                  "-", str(build.CSRC / src)], capture_output=True, text=True,
+                                 timeout=300, check=True).stdout
+            counts = {op: ptx.count(op) for op in ops}
+            print(f"  PTX of {src}{why}: {counts}")
+            check(all(counts.values()), f"{src}: PTX lacks one of {ops}")
+
     if os.path.exists(cuobjdump):
         sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
                               timeout=300, check=True).stdout
@@ -256,14 +274,9 @@ def instruction_counts(lib):
             counts = {op: text.count(op) for op in ops}
             print(f"  SASS of {key}: {counts}")
             check(all(counts.values()), f"{key}: SASS lacks one of {ops}")
+        ptx_counts(POLICY_PTX, "")
         return
-    for src, ops in PTX_OPS.items():
-        ptx = subprocess.run([build._nvcc(), *build.ARCH_FLAGS, "-std=c++17", "-ptx", "-o", "-",
-                              str(build.CSRC / src)], capture_output=True, text=True,
-                             timeout=300, check=True).stdout
-        counts = {op: ptx.count(op) for op in ops}
-        print(f"  PTX of {src} (no cuobjdump): {counts}")
-        check(all(counts.values()), f"{src}: PTX lacks one of {ops}")
+    ptx_counts({**PTX_OPS, **POLICY_PTX}, " (no cuobjdump)")
 
 
 def kernel_phase(dev):
@@ -358,6 +371,7 @@ def kernel_phase(dev):
     print("csr_dot vs plain version (bit-exact, both gathers):")
     gg = torch.Generator(device=dev).manual_seed(1)
     for label, b, k, d in (("SVM path (webspam width)", SVM_TRAIN, SVM_NNZ[1], WEBSPAM_DIM),
+                           ("ragged B and K", 2501, 4100, WEBSPAM_DIM),
                            ("kddcup10-like", 100_000, 56, KDDCUP10_DIM),
                            ("ragged B", 1001, 77, 1000)):
         idx = torch.randint(0, d, (b, k), generator=gg, device=dev, dtype=torch.int32)
@@ -470,6 +484,35 @@ def gather_kernel_phase(dev):
     print(f"  {cases} cases bit-exact (f32/bf16/int32, rows_per_block 1/2/4/8, rows_per_step "
           f"1/8/16, ragged B, duplicate and out-of-range ids); B = 0 launches nothing")
 
+    # batch_gather_tables: the DNN path's f32 and int32 tables with a bf16 one
+    # off a 16-byte boundary, one launch each call, host ids in the launch's
+    # parameters up to the cap and loaded by the kernel above it or on the card
+    x = torch.randn(4096, 32, generator=g, device=dev)
+    y = torch.randint(-2**31, 2**31 - 1, (4096, 1), generator=g, device=dev, dtype=torch.int32)
+    z = torch.randn(4097, 3, generator=g, device=dev).to(torch.bfloat16)[1:]
+    cap = ops._PARAM_IDS
+    routes = {}
+    for b in (1, 100, 129, cap, cap + 1, 5000):
+        for r in (1, 2):
+            nb = 4096 // r
+            idx = torch.randint(-nb - 3, nb + 4, (b,), generator=g, device=dev, dtype=torch.int32)
+            for ids in (idx.cpu(), idx):
+                ops.reset_launch_counts()
+                got = ops.batch_gather_tables((x, y, z), ids, block_d=1, rows_per_block=r)
+                torch.cuda.synchronize()
+                check(all(torch.equal(o, ref.batch_gather(t, idx, r)) for o, t in zip(got, (x, y, z)))
+                      and ops.LAUNCHES["batch_gather"] == 1,
+                      f"batch_gather_tables B={b} r={r} on {ids.device} differs or launched "
+                      f"{ops.LAUNCHES['batch_gather']} times")
+                route = ops._gather_route(ids.device.type == "cpu", b)
+                check(list(ops.ENTRY_LAUNCHES) == [{"params": "repro_torch_gather_tables_params",
+                                                    "load": "repro_torch_gather_tables"}[route]],
+                      f"B={b} on {ids.device}: {ops.ENTRY_LAUNCHES}, want the {route} route")
+                routes[route] = routes.get(route, 0) + 1
+    print(f"  batch_gather_tables (f32 + int32 + bf16 off 16 bytes, one launch a call) bit-exact "
+          f"at B 1-5000 around the {cap}-id cap, r 1/2, host and device ids; calls by route "
+          f"{routes}")
+
     rows = time_gathers(dev, g)
     torch.cuda.empty_cache()  # the 2 GiB table
     return rows
@@ -479,7 +522,10 @@ def time_gathers(dev, g):
     """Both gathers, their plain version and index_select at the DNN
     path's shape (one batch's features and labels) and a bandwidth shape.
     Each timed call gathers its own ids (one set per call of the graph),
-    so the bandwidth shape's rows are not all in the 50 MB L2."""
+    so the bandwidth shape's rows are not all in the 50 MB L2.  K1 gathers
+    the DNN pair in one launch, as ``DeviceTable.batch`` does, with host
+    ids (the parameter route, the path's) and with device ids (the loading
+    route); K2 makes a launch a table."""
     from repro_torch.kernels import ops, ref
 
     n, d, b = 20 * (IMAGENET_ROWS // 20), 32, 100
@@ -489,18 +535,22 @@ def time_gathers(dev, g):
     big = torch.randn(nbw, dbw, generator=g, device=dev)
     shapes = [("DNN path: features + labels", (x, y), b, 1, 50),
               ("bandwidth r=1", (big,), bbw, 1, 50), ("bandwidth r=8", (big,), bbw, 8, 20)]
-    rows = {}
+    rows, bandwidth = {}, {}
     for label, tables, b, r, calls in shapes:
         nb = tables[0].shape[0] // r
         ids = [torch.randint(0, nb, (b,), generator=g, device=dev, dtype=torch.int32)
                for _ in range(calls)]
+        host = [i.cpu() for i in ids]
 
-        def timed(f):
+        def timed(f, ids=ids):
             it = itertools.cycle(ids)
             return lambda: f(next(it))
 
-        def kernel(fn):
-            return lambda i: [fn(t, i, rows_per_block=r) for t in tables]
+        def k1(i):
+            return ops.batch_gather_tables(tables, i, block_d=1, rows_per_block=r)
+
+        def k2(i):
+            return [ops.batch_gather_dma(t, i, rows_per_block=r) for t in tables]
 
         def plain(i):
             return [ref.batch_gather(t, i, r) for t in tables]
@@ -509,38 +559,58 @@ def time_gathers(dev, g):
             return [t.view(nb, r * t.shape[1]).index_select(0, i) for t in tables]
 
         want = plain(ids[0])
-        errs = []
-        for name in ("batch_gather", "batch_gather_dma"):
-            got = kernel(getattr(ops, name))(ids[0])
-            errs.append(max(check_equal(f"{label} {name}", o, w) for o, w in zip(got, want)))
+        errs = {}
+        for name, got in (("batch_gather", k1(host[0])), ("batch_gather (device ids)", k1(ids[0])),
+                          ("batch_gather_dma", k2(ids[0]))):
+            errs[name] = max(check_equal(f"{label} {name}", o, w) for o, w in zip(got, want))
         check(all(torch.equal(a.view(-1), w.view(-1)) for a, w in zip(library(ids[0]), want)),
               f"{label}: index_select differs from the plain version")
-        t, eager = time_ms({
-            "batch_gather": timed(kernel(ops.batch_gather)),
-            "batch_gather_dma": timed(kernel(ops.batch_gather_dma)),
-            "plain": timed(plain),
-            "library": timed(library),
-        }, n=calls)
-        nbytes = sum(2 * b * r * tb.shape[1] * tb.element_size() + 4 * b for tb in tables)
-        bnd = bound(nbytes, 0, F32_FLOPS)
+        fns = {"batch_gather": timed(k1, host), "batch_gather (device ids)": timed(k1),
+               "batch_gather_dma": timed(k2), "plain": timed(plain), "library": timed(library)}
+        if b > ops._PARAM_IDS:  # host ids above the cap are copied first: not graph-capturable
+            del fns["batch_gather"]
+        t, eager = time_ms(fns, n=calls)
+        # each row read once and written once; the ids read from device
+        # memory once a launch: none for K1 on host ids (they ride in the
+        # launch's parameters), once for K1 on device ids (one launch for
+        # every table), once a table for K2 (one launch a table)
+        data = sum(2 * b * r * tb.shape[1] * tb.element_size() for tb in tables)
+        nbytes = {"batch_gather": data, "batch_gather (device ids)": data + 4 * b,
+                  "batch_gather_dma": data + 4 * b * len(tables)}
+        bnd = {k: bound(v, 0, F32_FLOPS) for k, v in nbytes.items()}
         print(f"  {label}: B={b}, tables {[tuple(tb.shape) for tb in tables]}: device ms per "
-              f"call {t}; eager ms per call {eager}; bound {bnd['bound_ms']:.6f} ms "
-              f"({nbytes} bytes)")
+              f"call {t}; eager ms per call {eager}; bound ms "
+              f"{ {k: round(v['bound_ms'], 9) for k, v in bnd.items()} } (bytes {nbytes})")
         if label.startswith("DNN path"):
-            for name, err in zip(("batch_gather", "batch_gather_dma"), errs):
+            for name in ("batch_gather", "batch_gather_dma"):
                 rows[name] = dict(
                     name=name, route="cuda", source="src/repro_torch/kernels/csrc/batch_gather.cu",
                     replaces=("src/repro/kernels/batch_gather.py:63" if name == "batch_gather"
                               else "src/repro/kernels/batch_gather.py:144"),
-                    max_abs_err=err, ms=t[name], plain_ms=t["plain"], **bnd,
+                    max_abs_err=errs[name], ms=t[name], plain_ms=t["plain"], **bnd[name],
                     library_ms=t["library"])
-    # K1's latency floor: one launch gathering one row (ids read, then the
-    # row they name: two dependent round trips), alone and as the pair
+            rows["batch_gather"]["device_ids_ms"] = t["batch_gather (device ids)"]
+            rows["batch_gather"]["device_ids_bound_ms"] = \
+                bnd["batch_gather (device ids)"]["bound_ms"]
+        else:
+            bandwidth[label] = {"batch_gather": (t["batch_gather (device ids)"],
+                                                 bnd["batch_gather (device ids)"]["bound_ms"]),
+                                "batch_gather_dma": (t["batch_gather_dma"],
+                                                     bnd["batch_gather_dma"]["bound_ms"]),
+                                "library": t["library"]}
+    for name in ("batch_gather", "batch_gather_dma"):
+        rows[name]["bandwidth_ms"] = {k: {"ms": v[name][0], "library_ms": v["library"],
+                                          "bound_ms": v[name][1]} for k, v in bandwidth.items()}
+    # K1's latency floor: one launch gathering one row of each DNN table
+    # (host ids: the row is the block's first load; device ids: the id
+    # first, then the row it names), and the features alone
     ids = [torch.randint(0, n, (1,), generator=g, device=dev, dtype=torch.int32)
            for _ in range(50)]
-    it = itertools.cycle(ids)
-    t, _ = time_ms({"features": lambda: ops.batch_gather(x, next(it)),
-                    "pair": lambda: [ops.batch_gather(tb, next(it)) for tb in (x, y)]})
+    host = [i.cpu() for i in ids]
+    it, ih = itertools.cycle(ids), itertools.cycle(host)
+    t, _ = time_ms({"features": lambda: ops.batch_gather(x, next(ih)),
+                    "pair": lambda: ops.batch_gather_tables((x, y), next(ih)),
+                    "pair (device ids)": lambda: ops.batch_gather_tables((x, y), next(it))})
     print(f"  K1 per-launch latency floor (B = 1 on the DNN tables): device ms per call {t}")
     rows["batch_gather"]["b1_ms"] = t
     return rows
@@ -1020,7 +1090,7 @@ def dnn_phase(dev, seed=0):
                         device=dev, runs=runs)[DNN_MODEL]
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = dict(ops.LAUNCHES)
+        launches, entries = dict(ops.LAUNCHES), dict(ops.ENTRY_LAUNCHES)
     finally:
         TFIPShuffler.epoch_order = epoch_order
     n = runs[0][3].rows // DNN_EPOCHS
@@ -1055,8 +1125,10 @@ def dnn_phase(dev, seed=0):
     if np.isfinite(res["val_traj_tfip"][-1]):  # np.minimum.accumulate keeps a NaN, as in JAX
         check(res["epochs_lirs_mean"] <= DNN_EPOCHS,
               f"LIRS did not reach TFIP's minimum validation loss in {DNN_EPOCHS} epochs")
-    check(launches["batch_gather"] == 2 * steps,
-          f"batch_gather launched {launches['batch_gather']} times for {steps} steps")
+    check(launches["batch_gather"] == steps
+          and entries.get("repro_torch_gather_tables_params") == steps,
+          f"batch_gather launched {launches['batch_gather']} times ({entries}) for {steps} "
+          "steps, want one launch a step with the ids in its parameters")
     check(launches["batch_gather_dma"] == 0, "batch_gather_dma launched on the block run")
     check(res["acc_lirs"] > res["acc_tfip"],
           f"LIRS test accuracy {res['acc_lirs']} not above TFIP's {res['acc_tfip']}")
@@ -1289,7 +1361,8 @@ def main() -> int:
     for name in ("rglru_scan", "rglru_scan_bwd"):
         rows.append(dict(scans[name], launches=train_launches[name]))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms", "context_4096", "b1_ms")
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "context_4096", "b1_ms",
+            "device_ids_ms", "device_ids_bound_ms", "bandwidth_ms")
     print(json.dumps({"kernels": [{k: row[k] for k in keys if k in row} for row in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

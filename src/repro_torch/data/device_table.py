@@ -4,11 +4,13 @@ LIRS kernels.
 The JAX DNN runs (``benchmarks/dnn_convergence.py``, ``queue_size.py``)
 build every batch on the host as ``xs[idx]``, ``ys[idx]`` and hand the
 numpy arrays to the model.  The port keeps the features and labels on
-the device once and does that indexing there: ``batch(idx)`` copies the
-batch's ids to the device (one small copy) and gathers the rows with
-``ops.batch_gather`` (``gather="block"``) or ``ops.batch_gather_dma``
-(``gather="dma"``), one launch for the features and one for the labels.
-The gathers copy bytes, so a batch equals ``xs[idx]``, ``ys[idx]``.
+the device once and does that indexing there.  With ``gather="block"``,
+``batch(idx)`` makes one ``ops.batch_gather_tables`` launch for both
+tables, the batch's host ids (up to 960) carried in the launch's
+parameters, with no copy of them first.  With ``gather="dma"`` it copies the ids to the device
+(one small copy) and makes two ``ops.batch_gather_dma`` launches, one for
+the features and one for the labels.  The gathers copy bytes, so a batch
+equals ``xs[idx]``, ``ys[idx]``.
 """
 from __future__ import annotations
 
@@ -37,14 +39,15 @@ class DeviceTable:
     def __len__(self) -> int:
         return self.x.shape[0]
 
-    def _take(self, table, idx):
-        if self.gather == "block":
-            return ops.batch_gather(table, idx)
-        return ops.batch_gather_dma(table, idx, rows_per_step=self.rows_per_step)
-
     def batch(self, idx):
         """(x (B, DIM) f32, y (B,) int32) on the device for record ids
         ``idx`` (in ``[0, N)``)."""
-        i = torch.from_numpy(np.asarray(idx).astype(np.int32)).to(self.device)
+        i = torch.from_numpy(np.asarray(idx).astype(np.int32))
         self.rows += i.shape[0]
-        return self._take(self.x, i), self._take(self.y, i)[:, 0]
+        if self.gather == "block":
+            x, y = ops.batch_gather_tables((self.x, self.y), i)
+        else:
+            i = i.to(self.device)
+            x, y = (ops.batch_gather_dma(t, i, rows_per_step=self.rows_per_step)
+                    for t in (self.x, self.y))
+        return x, y[:, 0]

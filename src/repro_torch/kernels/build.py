@@ -32,6 +32,17 @@ NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+
+
+class GatherTable(ctypes.Structure):
+    """One table of a ``batch_gather`` launch (``GatherTable`` in
+    csrc/batch_gather.cu): its rows, the output, its block count and the
+    bytes of one block."""
+
+    _fields_ = [("table", _P), ("out", _P), ("n_blocks", _L), ("block_bytes", _L)]
+
+
+_T = ctypes.POINTER(GatherTable)
 # name -> argtypes of the extern "C" entry points (see the .cu files)
 _SIGNATURES = {
     "repro_torch_flash_attention": [_P, _P, _P, _P] + [_I] * 8 + [_P],
@@ -39,7 +50,8 @@ _SIGNATURES = {
     "repro_torch_flash_decode": [_P, _P, _P, _P, _P] + [_I] * 6 + [_P],
     "repro_torch_flash_decode_cluster": [_P, _P, _P, _P, _P] + [_I] * 7 + [_P],
     "repro_torch_csr_dot": [_P, _P, _P, _P, _I, _I, _P],
-    "repro_torch_batch_gather": [_P, _P, _P, _L, _L, _L, _P],
+    "repro_torch_gather_tables": [_T, _I, _P, _L, _P],
+    "repro_torch_gather_tables_params": [_T, _I, _P, _L, _P],
     "repro_torch_batch_gather_dma": [_P, _P, _P, _L, _L, _L, _I, _P],
     "repro_torch_rglru_scan": [_P, _P, _P, _I, _I, _I, _P],
     "repro_torch_rglru_scan_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
@@ -71,38 +83,60 @@ def build_dir() -> Path:
     return BUILD_ROOT / h.hexdigest()[:16]
 
 
+def compile_objects(jobs) -> str:
+    """Compile each source of ``{object path: source path}`` to its object,
+    one ``nvcc`` process a source, all started together; returns their
+    output (``-Xptxas -v``: registers, shared memory, spills per kernel).
+    A source outside ``csrc/`` still finds its headers there."""
+    nvcc = _nvcc()
+    procs = {obj: subprocess.Popen(
+        [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src), "-o", str(obj)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    ) for obj, src in jobs.items()}
+    logs = {obj: p.communicate()[0] for obj, p in procs.items()}
+    log = "".join(f"== {Path(jobs[obj]).name}\n{text}" for obj, text in logs.items())
+    failed = [str(jobs[obj]) for obj, p in procs.items() if p.returncode != 0]
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+    return log
+
+
+def link(objs, lib) -> str:
+    """Link the objects into the shared library ``lib``; returns the output."""
+    out = subprocess.run(
+        [_nvcc(), "-shared", *ARCH_FLAGS, *map(str, objs), "-o", str(lib), "-lcudart"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
+    if out.returncode != 0:
+        raise RuntimeError(f"nvcc link failed:\n{out.stdout}")
+    return out.stdout
+
+
+def bind(lib) -> ctypes.CDLL:
+    """Load a built library with the entry points' argument types."""
+    cdll = ctypes.CDLL(str(lib))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(cdll, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return cdll
+
+
 def build() -> Path:
     """Compile the kernels if this source set has no library yet; returns
-    the library's path.  The compiler's output (``-Xptxas -v``: registers,
-    shared memory, spills per kernel) is kept in ``build.log`` beside it."""
+    the library's path.  The compiler's output is kept in ``build.log``
+    beside it."""
     out_dir = build_dir()
     lib = out_dir / LIB_NAME
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
-        objs, procs = [], []
-        for src in SOURCES:
-            obj = os.path.join(tmp, src.replace(".cu", ".o"))
-            objs.append(obj)
-            procs.append(subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-c", str(CSRC / src), "-o", obj],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-            ))
-        logs = [p.communicate()[0] for p in procs]
-        failed = [s for s, p in zip(SOURCES, procs) if p.returncode != 0]
-        log = "".join(f"== {s}\n{text}" for s, text in zip(SOURCES, logs))
-        if failed:
-            raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+        objs = {os.path.join(tmp, s.replace(".cu", ".o")): CSRC / s for s in SOURCES}
+        log = compile_objects(objs)
         tmp_lib = os.path.join(tmp, LIB_NAME)
-        link = subprocess.run(
-            [nvcc, "-shared", *ARCH_FLAGS, *objs, "-o", tmp_lib, "-lcudart"],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        )
-        if link.returncode != 0:
-            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
-        (out_dir / "build.log").write_text(log + link.stdout)
+        log += link(objs, tmp_lib)
+        (out_dir / "build.log").write_text(log)
         os.replace(tmp_lib, lib)  # atomic: a reader never sees half a file
     return lib
 
@@ -110,9 +144,4 @@ def build() -> Path:
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
-    lib = ctypes.CDLL(str(build()))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib
+    return bind(build())

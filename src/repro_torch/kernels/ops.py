@@ -32,6 +32,8 @@ _MAX_GROUP = 16      # kMaxGroup in csrc/flash_decode.cu and flash_decode_cluste
 _DECODE_TILE = 64    # kTile in csrc/flash_decode_cluster.cu: a slice is whole tiles
 _MAX_SPLITS = 8      # its largest cluster (the portable size)
 _GATHER_DTYPES = (torch.float32, torch.bfloat16, torch.int32)
+_MAX_TABLES = 4      # kMaxTables in csrc/batch_gather.cu: tables a batch_gather launch
+_PARAM_IDS = 960     # kParamIds there: host ids a launch carries in its parameters
 _MAX_GRID_Y = 65535  # the batch on grid.y (rglru_scan) or grid.z (flash_decode_cluster)
 
 
@@ -248,7 +250,7 @@ def _gather_args(name, table, indices, block_d: int, rows_per_block: int):
 
 
 def _gather(name, fn, table, indices, rows_per_block, *extra):
-    """Launch one of the gather kernels (or the plain version on the CPU);
+    """Launch ``batch_gather_dma`` (or the plain version on the CPU);
     ``B = 0`` returns ``(0, D)`` without a launch."""
     n, d = table.shape
     r = rows_per_block
@@ -268,15 +270,72 @@ def _gather(name, fn, table, indices, rows_per_block, *extra):
     return out
 
 
+def _gather_route(ids_on_host: bool, b: int) -> str:
+    """Which CUDA kernel serves a ``batch_gather_tables`` call of ``b`` ids:
+    ``"params"`` (the ids copied into the launch's parameters,
+    ``repro_torch_gather_tables_params``) for host ids with ``b <=
+    _PARAM_IDS``; ``"load"`` (the kernel loads its ids from device memory,
+    ``repro_torch_gather_tables``) for device ids and for more host ids,
+    which are copied to the device first.  A CUDA graph that must read new
+    ids at every replay needs device ids: a captured launch keeps its
+    parameters."""
+    return "params" if ids_on_host and b <= _PARAM_IDS else "load"
+
+
+def batch_gather_tables(tables, indices, *, block_d: int = 512, rows_per_block: int = 1):
+    """``[batch_gather(t, indices) for t in tables]`` in one launch: up to
+    four tables (N, D) f32/bf16/int32 on one device, each with its own
+    width and dtype, gathered by the same block ids.  ``indices`` may be a
+    numpy array or a CPU tensor for CUDA tables: then, up to 960 ids ride
+    in the launch's parameters (``_gather_route``) and no copy of them
+    precedes it."""
+    tables = tuple(tables)
+    if not 1 <= len(tables) <= _MAX_TABLES:
+        raise ValueError(f"batch_gather: 1 to {_MAX_TABLES} tables, got {len(tables)}")
+    if not isinstance(indices, torch.Tensor):
+        indices = torch.as_tensor(indices)
+    for t in tables:  # every table's checks; the ids come back as int32
+        idx = _gather_args("batch_gather", t, indices, block_d, rows_per_block)
+    r, b = rows_per_block, idx.shape[0]
+    devices = {t.device for t in tables}
+    dev = devices.pop() if len(devices) == 1 else None
+    if dev is None or idx.device not in (dev, torch.device("cpu")):
+        raise ValueError(f"batch_gather: tables and ids on several devices "
+                         f"{sorted(map(str, {t.device for t in tables} | {idx.device}))}")
+    if dev.type == "cpu":
+        return [ref.batch_gather(t, idx, r) for t in tables]
+    if dev.type != "cuda":
+        raise ValueError(f"batch_gather: no kernel for device {dev}")
+    if not all(t.is_contiguous() for t in tables):
+        raise ValueError("batch_gather: tables must be contiguous")
+    outs = [torch.empty(b * r, t.shape[1], dtype=t.dtype, device=dev) for t in tables]
+    if b == 0:
+        return outs
+    from repro_torch.kernels.build import GatherTable
+
+    descs = (GatherTable * len(tables))(*[
+        GatherTable(t.data_ptr(), o.data_ptr(), t.shape[0] // r, r * t.shape[1] * t.element_size())
+        for t, o in zip(tables, outs)])
+    fn = "repro_torch_gather_tables"
+    if _gather_route(idx.device.type == "cpu", b) == "params":
+        fn += "_params"
+    else:
+        idx = idx.to(dev)
+    with torch.cuda.device(dev):
+        _launch("batch_gather", fn, descs, len(tables), idx.data_ptr(), b,
+                torch.cuda.current_stream().cuda_stream)
+    return outs
+
+
 def batch_gather(table, indices, *, block_d: int = 512, rows_per_block: int = 1):
     """The LIRS gather: table (N, D) f32/bf16/int32, indices (B,) block
     ids; returns (B·r, D), block i the ``r = rows_per_block`` rows from
     ``indices[i]·r``.  Out-of-range ids follow ``ref.batch_gather`` (a
     negative id wraps once, then clamps).  ``block_d`` keeps the Pallas
     kernel's signature and its divisibility check; the CUDA kernel copies
-    whole blocks."""
-    idx = _gather_args("batch_gather", table, indices, block_d, rows_per_block)
-    return _gather("batch_gather", "repro_torch_batch_gather", table, idx, rows_per_block)
+    whole blocks.  The one-table case of ``batch_gather_tables``."""
+    return batch_gather_tables((table,), indices, block_d=block_d,
+                               rows_per_block=rows_per_block)[0]
 
 
 def batch_gather_dma(table, indices, *, block_d: int = 512, rows_per_block: int = 1,

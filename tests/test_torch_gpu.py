@@ -13,7 +13,8 @@ the rest the CUDA-core one (``flash_attention.cu``); bf16 decode with head
 dim 64 or 128 runs the split-KV cluster kernel (``flash_decode_cluster.cu``),
 f32 decode the tile kernel (``flash_decode.cu``).  ``csr_dot`` is bit-exact against ``ref.csr_dot``,
 which sums in the kernel's order; both gathers copy bytes and are
-bit-exact against ``ref.batch_gather``.  The scan (``rglru_scan`` and its
+bit-exact against ``ref.batch_gather``, ``batch_gather`` on both of its
+routes (host ids in the launch's parameters, or ids loaded on the card).  The scan (``rglru_scan`` and its
 backward ``rglru_scan_bwd``) is bit-exact against ``ref.rglru_scan`` /
 ``ref.rglru_scan_bwd``, which step through time as the kernels do, on
 the TMA ring kernel (W % 4 == 0) and the lanes kernel (the rest).
@@ -138,10 +139,14 @@ def test_flash_decode_one_row_on_card(cuda, t, dt):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("gather", ["take", "onehot"])
-@pytest.mark.parametrize("b,k,d", [(10_000, 5456, 16_609_143), (1001, 77, 1000), (9, 33, 6), (1, 1, 1)])
+@pytest.mark.parametrize("b,k,d", [(10_000, 5456, 16_609_143), (2501, 4100, 16_609_143),
+                                   (1001, 77, 1000), (9, 33, 6), (1, 1, 1)])
 def test_csr_dot_kernel_on_card_bit_exact(cuda, b, k, d, gather):
     """Bit-exact against ref.csr_dot (the kernel's summation order), on
-    padded rows with duplicate ids; one launch per non-empty call."""
+    padded rows with duplicate ids; one launch per non-empty call.  The
+    SVM path's shape and one with K no multiple of the 256 entries a warp
+    takes at a time (8 a lane) and B no multiple of the 8 rows a block,
+    both with a w over 50 MB; K below one lane's 8 entries."""
     g = torch.Generator(device=cuda).manual_seed(b + k)
     idx = torch.randint(0, d, (b, k), generator=g, device=cuda, dtype=torch.int32)
     val = torch.randn(b, k, generator=g, device=cuda)
@@ -197,6 +202,100 @@ def test_batch_gather_kernels_on_card_bit_exact(cuda, n, d, b, r, m, off, dt):
         assert tuple(fn(table, idx[:0], block_d=d, rows_per_block=r).shape) == (0, d)
     assert ops.LAUNCHES["batch_gather"] == before["batch_gather"] + 1
     assert ops.LAUNCHES["batch_gather_dma"] == before["batch_gather_dma"] + 1
+
+
+def _mixed_tables(cuda, n, r, seed):
+    """The DNN path's two tables (f32 128-byte rows, int32 4-byte rows) and
+    a bf16 one of 3-wide rows off a 16-byte boundary (2-byte words)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(n, 32, generator=g, device=cuda)
+    y = torch.randint(-2**31, 2**31 - 1, (n, 1), generator=g, device=cuda, dtype=torch.int32)
+    z = torch.randn(n + 1, 3, generator=g, device=cuda).to(torch.bfloat16)[1:]
+    return (x, y, z), g
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r", [1, 2])
+@pytest.mark.parametrize("on_host", [True, False])
+@pytest.mark.parametrize("b", [1, 100, 129, 960, 961, 5000])
+def test_batch_gather_tables_routes_on_card_bit_exact(cuda, b, on_host, r):
+    """One launch for three tables of mixed dtypes and widths, both
+    routes: host ids in the launch's parameters up to the 960 cap, the
+    loading kernel for device ids and above the cap; duplicate, negative
+    and out-of-range ids; bit-exact against ref.batch_gather per table."""
+    tables, g = _mixed_tables(cuda, 4096, r, b + r)
+    nb = 4096 // r
+    idx = torch.randint(-nb - 3, nb + 4, (b,), generator=g, device=cuda, dtype=torch.int32)
+    idx[: min(3, b)] = int(idx[-1])
+    ids = idx.cpu() if on_host else idx
+    route = ops._gather_route(on_host, b)
+    assert route == ("params" if on_host and b <= 960 else "load")
+    ops.reset_launch_counts()
+    got = ops.batch_gather_tables(tables, ids, block_d=1, rows_per_block=r)
+    torch.cuda.synchronize()
+    for out, t in zip(got, tables):
+        assert torch.equal(out, ref.batch_gather(t, idx, r))
+    entry = {"params": "repro_torch_gather_tables_params", "load": "repro_torch_gather_tables"}
+    assert ops.LAUNCHES["batch_gather"] == 1 and ops.ENTRY_LAUNCHES == {entry[route]: 1}
+
+
+@pytest.mark.gpu
+def test_batch_gather_tables_host_ids_in_a_cuda_graph(cuda):
+    """Captured launches of the parameter route keep the ids each was
+    given: two captured calls with other host ids replay to their eager
+    outputs, and the DeviceTable step makes one launch."""
+    tables, g = _mixed_tables(cuda, 1000, 1, 3)
+    ids = [torch.randint(0, 1000, (100,), generator=g, dtype=torch.int32, device=cuda).cpu()
+           for _ in range(2)]
+    want = [ops.batch_gather_tables(tables, i) for i in ids]
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        ops.batch_gather_tables(tables, ids[0])
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [ops.batch_gather_tables(tables, i) for i in ids]
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, w) for got, exp in zip(outs, want) for o, w in zip(got, exp))
+
+    from repro_torch.data.device_table import DeviceTable
+
+    xs = tables[0].cpu().numpy()
+    ys = torch.randint(0, 20, (1000,), generator=g, device=cuda, dtype=torch.int32).cpu().numpy()
+    dt = DeviceTable(xs, ys, device=cuda)
+    ops.reset_launch_counts()
+    x, y = dt.batch(ids[1].numpy())
+    torch.cuda.synchronize()
+    assert torch.equal(x.cpu(), torch.from_numpy(xs[ids[1].numpy()]))
+    assert torch.equal(y.cpu(), torch.from_numpy(ys[ids[1].numpy()]))
+    assert ops.ENTRY_LAUNCHES == {"repro_torch_gather_tables_params": 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [133, 300, 960, 40000])
+def test_batch_gather_tables_many_ids_a_block_repeated_on_card(cuda, b):
+    """Launches in which a thread block takes several ids (B above the SM
+    count; up to 256 ids a block at B = 40,000): 200 back to back with new
+    ids each, host and device ids in turn, every output kept until one
+    synchronize, each bit-exact against ref.batch_gather per table."""
+    tables, g = _mixed_tables(cuda, 1 << 20, 1, b)
+    n = tables[0].shape[0]
+    ids = [torch.randint(-n, n + 5, (b,), generator=g, device=cuda, dtype=torch.int32)
+           for _ in range(200)]
+    host = [i.cpu() for i in ids]
+    ops.reset_launch_counts()
+    got = [ops.batch_gather_tables(tables, h if k % 2 == 0 else i)
+           for k, (i, h) in enumerate(zip(ids, host))]
+    torch.cuda.synchronize()
+    for i, outs in zip(ids, got):
+        for out, t in zip(outs, tables):
+            assert torch.equal(out, ref.batch_gather(t, i, 1))
+    on_params = 100 if b <= 960 else 0
+    assert ops.LAUNCHES["batch_gather"] == 200
+    assert ops.ENTRY_LAUNCHES.get("repro_torch_gather_tables_params", 0) == on_params
+    assert ops.ENTRY_LAUNCHES["repro_torch_gather_tables"] == 200 - on_params
 
 
 # batch_gather_dma's ring: (dtype, width, rows_per_block, offset rows) for

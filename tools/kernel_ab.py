@@ -1,18 +1,21 @@
 #!/usr/bin/env python3
 """Time the redesigned kernels of two source trees on one card, in turns.
 
-    python3 tools/kernel_ab.py OLD_ROOT NEW_ROOT [--kernels gather,attention,decode,scan]
+    python3 tools/kernel_ab.py OLD_ROOT NEW_ROOT [--kernels gather,attention,decode,scan,csr]
 
 Each turn is a fresh process that builds the kernels of one tree
 (``<root>/src``, into ``<root>/build/``) and times, with
 ``chip_smoke.time_ms`` (CUDA graphs, CUDA events), the kernel groups
-``--kernels`` names (all four by default):
+``--kernels`` names (all five by default):
 
-- ``batch_gather_dma`` at the DNN path's shape (the pair of launches of
-  one ``DeviceTable.batch``: B = 100 of a (1281160, 32) f32 table and a
-  (1281160, 1) int32 one, rows_per_step 8) and the 2 GiB bandwidth shape
-  (B = 8,192 of (1048576, 512) f32, r = 1 and 8), against
-  ``index_select``;
+- ``batch_gather`` (K1) and ``batch_gather_dma`` (K2) at the DNN path's
+  shape (one ``DeviceTable.batch``: B = 100 of a (1281160, 32) f32 table
+  and a (1281160, 1) int32 one; K2 at rows_per_step 8), the same pair at
+  B = 1, and the 2 GiB bandwidth shape (B = 8,192 of (1048576, 512) f32,
+  r = 1 and 8), against ``index_select``.  K1 gathers the pair in one
+  launch where the tree has ``ops.batch_gather_tables`` (device ids, and
+  host ids in the launch's parameters as ``batch_gather host ids``), else
+  one launch a table on device ids;
 - ``flash_attention`` in bf16, causal, q (1,S,32,128), k/v (1,S,8,128) at
   S = 128 (the serving prefill) and 4,096 (granite-3-8b's context),
   against ``scaled_dot_product_attention``;
@@ -20,7 +23,10 @@ Each turn is a fresh process that builds the kernels of one tree
   (8,160,8,128) bf16, chip_smoke's eight ``cur`` values), against
   ``scaled_dot_product_attention`` with the position mask;
 - ``rglru_scan`` and ``rglru_scan_bwd`` at the training path's shape
-  (1, 4096, 2560) f32 (no library call computes a linear recurrence).
+  (1, 4096, 2560) f32 (no library call computes a linear recurrence);
+- ``csr_dot`` at the SVM call's shape: a (10000, 5456) padded CSR block
+  (2,000-5,456 nonzeros a row, uniform ids) and w of 16,609,143, against
+  ``embedding_bag``.
 
 The gather group also profiles (``torch.profiler``, device time per
 launch over 200 eager launches) ``batch_gather_dma`` on the DNN path's
@@ -65,41 +71,97 @@ def turn(root: str, groups) -> dict:
     return out
 
 
-def time_gather(chip_smoke, ops, dev, g, out):
-    import itertools
-
+def gather_tables(chip_smoke, dev, g):
+    """The gather groups' tables: the DNN path's features (1281160, 32) f32
+    and labels (1281160, 1) int32, and the 2 GiB bandwidth table."""
     import torch
 
     n = 20 * (chip_smoke.IMAGENET_ROWS // 20)
     x = torch.randn(n, 32, generator=g, device=dev)
     y = torch.randint(0, 20, (n, 1), generator=g, device=dev, dtype=torch.int32)
     big = torch.randn(*chip_smoke.GATHER_BW[:2], generator=g, device=dev)
+    return x, y, big
+
+
+def svm_csr_block(chip_smoke, dev, g):
+    """``csr_dot``'s inputs at the SVM call's shape: a (10000, 5456) padded
+    CSR block, 2,000-5,456 nonzeros a row with uniform ids, and w of
+    16,609,143 f32."""
+    import torch
+
+    b, k, d = chip_smoke.SVM_TRAIN, chip_smoke.SVM_NNZ[1], chip_smoke.WEBSPAM_DIM
+    idx = torch.randint(0, d, (b, k), generator=g, device=dev, dtype=torch.int32)
+    val = torch.randn(b, k, generator=g, device=dev)
+    keep = torch.randint(chip_smoke.SVM_NNZ[0], k + 1, (b, 1), generator=g, device=dev)
+    pad = torch.arange(k, device=dev)[None, :] >= keep  # pad_csr's zero suffix
+    idx, val = idx.masked_fill(pad, 0), val.masked_fill(pad, 0.0)
+    w = torch.randn(d, generator=g, device=dev)
+    return idx, val, w
+
+
+def time_gather(chip_smoke, ops, dev, g, out):
+    import itertools
+
+    import torch
+
+    x, y, big = gather_tables(chip_smoke, dev, g)
+    n = x.shape[0]
+    fused = hasattr(ops, "batch_gather_tables")  # one K1 launch for several tables
     for label, tables, b, r, calls in (("dnn_pair", (x, y), 100, 1, 50),
+                                       ("b1_pair", (x, y), 1, 1, 50),
                                        ("bw_r1", (big,), 8192, 1, 50),
                                        ("bw_r8", (big,), 8192, 8, 20)):
         nb = tables[0].shape[0] // r
         ids = [torch.randint(0, nb, (b,), generator=g, device=dev, dtype=torch.int32)
                for _ in range(calls)]
+        host = [i.cpu() for i in ids]
         want = [t.view(nb, -1).index_select(0, ids[0]).view(-1, t.shape[1]) for t in tables]
-        got = [ops.batch_gather_dma(t, ids[0], block_d=t.shape[1], rows_per_block=r)
-               for t in tables]
-        assert all(torch.equal(a, w) for a, w in zip(got, want)), label
 
-        def timed(f):
+        def timed(f, ids=ids):
             it = itertools.cycle(ids)
             return lambda: f(next(it))
 
-        t, _ = chip_smoke.time_ms({
-            "kernel": timed(lambda i: [ops.batch_gather_dma(tb, i, block_d=tb.shape[1],
-                                                            rows_per_block=r) for tb in tables]),
-            "library": timed(lambda i: [tb.view(nb, -1).index_select(0, i) for tb in tables]),
-        }, n=calls)
-        out[f"batch_gather_dma {label}"] = t
+        def k1(i):
+            if fused:
+                return ops.batch_gather_tables(tables, i, block_d=1, rows_per_block=r)
+            return [ops.batch_gather(t, i, block_d=t.shape[1], rows_per_block=r) for t in tables]
+
+        def k2(i):
+            return [ops.batch_gather_dma(t, i, block_d=t.shape[1], rows_per_block=r)
+                    for t in tables]
+
+        fns = {"batch_gather": timed(k1), "batch_gather_dma": timed(k2),
+               "library": timed(lambda i: [t.view(nb, -1).index_select(0, i) for t in tables])}
+        if fused and b <= ops._PARAM_IDS:
+            fns["batch_gather host ids"] = timed(k1, host)
+        for name in fns:
+            if name != "library":
+                got = (k1(host[0]) if name.endswith("host ids") else
+                       k1(ids[0]) if name == "batch_gather" else k2(ids[0]))
+                assert all(torch.equal(a, w) for a, w in zip(got, want)), (label, name)
+        t, _ = chip_smoke.time_ms(fns, n=calls)
+        out[f"gathers {label}"] = t
     del big
     torch.cuda.empty_cache()
     out["per-launch device us"] = profile_gathers(ops, x, y, ids=[
         torch.randint(0, n, (100,), generator=g, device=dev, dtype=torch.int32)
         for _ in range(50)])
+
+
+def time_csr(chip_smoke, ops, dev, g, out):
+    import torch
+    import torch.nn.functional as F
+
+    idx, val, w = svm_csr_block(chip_smoke, dev, g)
+    w2 = w[:, None]
+    got = ops.csr_dot(idx, val, w)
+    lib = F.embedding_bag(idx, w2, per_sample_weights=val, mode="sum")[:, 0]
+    t, _ = chip_smoke.time_ms({
+        "kernel": lambda: ops.csr_dot(idx, val, w),
+        "library": lambda: F.embedding_bag(idx, w2, per_sample_weights=val, mode="sum")[:, 0],
+    }, n=20)
+    t["max_abs_err_vs_library"] = float((got - lib).abs().max())
+    out["csr_dot svm"] = t
 
 
 def time_attention(chip_smoke, ops, dev, g, out):
@@ -156,7 +218,7 @@ def time_scan(chip_smoke, ops, dev, g, out):
 
 
 GROUPS = {"gather": time_gather, "attention": time_attention, "decode": time_decode,
-          "scan": time_scan}
+          "scan": time_scan, "csr": time_csr}
 
 
 def profile_gathers(ops, x, y, ids, reps=200):
