@@ -32,15 +32,25 @@
    granite-3-8b at full published width — random weights from ``--seed``,
    40 layers, d_model 4096 — and checks that every request completed, no
    slot leaked, and each kernel launched 40 times per prefill and per
-   decode step (the warmup's included).
+   decode step (the warmup's included).  Then again with the
+   request-stream feature tier on (``--cache-mb``: 64 of 512 Zipf-popular
+   feature records in a Belady DRAM tier, 8 ids a request), with the same
+   checks, and that every feature read is a hit or a miss, the store's
+   counters equal the tier's, and misses alone reached storage.
 6. Profiles a few steady decode steps at full width (device time by
    kernel, device busy share).
 7. Trains the sparse SVM at webspam width (16,609,143 features, rows cut
    to 12,500) as the JAX package's acceptance path does: record store →
-   LIRS shuffler → multi-producer ragged pipeline → CSR packing → DCD,
+   LIRS shuffler → the tiered read path (a Belady DRAM tier of a quarter
+   of the training rows' bytes, lookahead prefetch along the shuffler's
+   index stream) → multi-producer ragged pipeline → CSR packing → DCD,
    with the objective and held-out margins through ``csr_dot`` after
    each epoch; checks the batches, the falling objective, the margins
-   against a host reference and the launch count; prints the host time
+   against a host reference and the launch count; first reads both
+   epochs through a second tiered plane and the direct plane and checks
+   every record's bytes equal; prints each epoch's storage reads and tier
+   counters (checking the store's cache hits equal the tier's) and the
+   drift report of the second epoch; prints the host time
    split, the kernel's device time and the device's busy share; then
    times ``csr_dot`` on the path's training-set inputs against its plain
    version and ``embedding_bag``.
@@ -80,8 +90,12 @@
    per pattern period): checks 8 finite losses and 36 ``rglru_scan`` and
    18 ``rglru_scan_bwd`` launches a step (18 RG-LRU layers, each scan run
    forward and again in the recompute); prints Eq. 1's numbers, the step
-   times and the peak memory; then profiles two steady steps (device time
-   by kernel, busy share).
+   times and the peak memory; then trains it again through the tiered
+   read path (16 records, 2 epochs, half of them in a Belady DRAM tier,
+   ``--drift-device optane``): 32 finite losses, the same scan launches a
+   step, the summary's ``cache`` and ``drift`` blocks, the drift report
+   within its tolerances; then profiles two steady steps (device time by
+   kernel, busy share).
 12. Prints ``{"kernels": [...]}``, then ``{"ok": true, "device": ...}`` as
    the last line.  Any failed check exits non-zero before those lines.
 """
@@ -112,6 +126,7 @@ EPSILON_DIM = 2_000        # epsilon
 SVM_TRAIN, SVM_TEST, SVM_BLOCK = 10_000, 2_500, 1_000  # rows cut from 350,000
 SVM_NNZ = (2000, 5456)     # mean 3,728 nonzeros per row, as webspam's ~3,700
 SVM_SWEEPS, SVM_EPOCHS = 3, 2
+SVM_CACHE_FRAC = 0.25      # the tier's budget: this share of the training rows' bytes
 
 # the DNN path (paper Tables 6-7): the JAX benchmark's widths (DIM 32, 20
 # classes, batch 100, "vgg-like" hidden widths) at the row count of the
@@ -129,6 +144,13 @@ GATHER_BW = (1_048_576, 512, 8_192)  # bandwidth shape: a 2 GiB f32 table, B
 TRAIN_ARGS = ["--arch", "recurrentgemma-2b", "--seq-len", "4096", "--batch", "1",
               "--num-records", "64", "--epochs", "1", "--steps", "8", "--seed", "0",
               "--device", "cuda"]
+# the same through the tiered read path: 16 records of 4,097 int32 (16,388
+# bytes), 8 of them in a Belady DRAM tier, 2 epochs (32 steps), a 4-batch
+# lookahead, and the drift report priced on Optane
+TRAIN_TIER_ARGS = ["--arch", "recurrentgemma-2b", "--seq-len", "4096", "--batch", "1",
+                   "--num-records", "16", "--epochs", "2", "--steps", "0", "--seed", "0",
+                   "--cache-mb", str(8 * 16388 / 2**20), "--prefetch-lookahead", "4",
+                   "--eviction-policy", "belady", "--drift-device", "optane", "--device", "cuda"]
 # the path's first; then ragged, T = 1, a long ragged T (128 ring tiles and
 # one step), a W no multiple of the 32-channel strip, and W % 4 != 0
 SCAN_SHAPES = ((1, 4096, 2560), (3, 1000, 2560 + 96), (2, 1, 2560), (1, 16385, 2560),
@@ -145,6 +167,13 @@ SERVE_ARGS = ["--arch", "granite-3-8b", "--serve-mode", "continuous",
               "--max-batch", "8", "--prompt-capacity", "128", "--gen", "32",
               "--requests", "16", "--offered-load", "1.0", "--seed", "0",
               "--device", "cuda"]
+# the request-stream feature tier, at benchmarks/serve_latency.py's
+# settings: 512 feature records of 68 bytes (a label and 16 f32 features),
+# 64 of them cached, 8 Zipf-popular ids a request
+SERVE_CACHE_RECORDS, SERVE_FEATURES_PER_REQUEST = 64, 8
+SERVE_TIER_FLAGS = ["--cache-mb", str(SERVE_CACHE_RECORDS * 68 / 2**20), "--num-features", "512",
+                    "--features-per-request", str(SERVE_FEATURES_PER_REQUEST),
+                    "--zipf-alpha", "1.1", "--eviction-policy", "belady"]
 
 
 class SmokeFailure(RuntimeError):
@@ -802,15 +831,42 @@ def linear_svm_phase(dev, steps=4):
 
 
 def serve_phase():
+    """The serving path twice at full width: ``SERVE_ARGS`` (the feature
+    tier off), then with the request-stream feature tier on; each run's
+    launches are counted from 0.  Returns the first run's launches."""
+    import gc
+
+    launches = serve_run(SERVE_ARGS)
+    gc.collect()
+    torch.cuda.empty_cache()  # the first engine's 8 B parameters
+    serve_run(SERVE_ARGS + SERVE_TIER_FLAGS, _check_feature_tier)
+    return launches
+
+
+def _check_feature_tier(report):
+    fc = report["feature_cache"]
+    print(f"  feature tier: {json.dumps(fc)}")
+    n = report["requests"] * SERVE_FEATURES_PER_REQUEST
+    check(fc["hits"] + fc["misses"] == n, f"{fc['hits']} + {fc['misses']} feature reads, want {n}")
+    check(fc["storage_cache_hits"] == fc["hits"],
+          f"IOStats counts {fc['storage_cache_hits']} cache hits, the tier {fc['hits']}")
+    check(fc["storage_records_read"] == fc["misses"],
+          f"storage read {fc['storage_records_read']} records for {fc['misses']} misses")
+    check(fc["capacity_records"] == SERVE_CACHE_RECORDS,
+          f"the tier holds {fc['capacity_records']} records, want {SERVE_CACHE_RECORDS}")
+
+
+def serve_run(args, extra_check=None):
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
 
-    print("serving granite-3-8b at full width:", " ".join(SERVE_ARGS))
+    print("serving granite-3-8b at full width:", " ".join(args))
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    report = serve.main(SERVE_ARGS)
+    report = serve.main(args)
     launches = dict(ops.LAUNCHES)
+    entries = dict(ops.ENTRY_LAUNCHES)
     print(f"  serve run incl. init {time.perf_counter() - t0:.1f} s; launches {launches}")
     layers = get_config("granite-3-8b").num_layers  # 40
     check(report["arch"] == "granite-3-8b", "not the full-width config")
@@ -822,9 +878,11 @@ def serve_phase():
           f"flash_attention launched {launches['flash_attention']} times, want {want_fa}")
     check(launches["flash_decode"] == want_fd,
           f"flash_decode launched {launches['flash_decode']} times, want {want_fd}")
-    entry = ops.ENTRY_LAUNCHES.get("repro_torch_flash_decode_cluster", 0)
+    entry = entries.get("repro_torch_flash_decode_cluster", 0)
     check(entry == want_fd, f"the cluster kernel ran {entry} of {want_fd} decode launches")
-    print(f"  launches by entry point {ops.ENTRY_LAUNCHES}")
+    print(f"  launches by entry point {entries}")
+    if extra_check is not None:
+        extra_check(report)
     return launches
 
 
@@ -905,6 +963,38 @@ class _EventTimed:
         return sum(a.elapsed_time(b) for a, b in self.pairs)
 
 
+def _tier_counters(plane):
+    """The tier's cumulative counters, as the training summary's ``cache``
+    block names them."""
+    return {"demand_hits": plane.cache.hits, "demand_misses": plane.cache.misses,
+            "window_hits": plane.scheduler.window_hits,
+            "prefetched_records": plane.prefetch_records,
+            "rejected_inserts": plane.cache.rejected, "planned_skips": plane.cache.planned_skips}
+
+
+def svm_tier_bytes_check(tiered, direct):
+    """Reads every batch of both epochs through a tiered plane and the
+    direct plane; each batch's lengths and every record's payload must be
+    equal (the tier moves bytes, never changes them)."""
+    import numpy as np
+
+    t0, records = time.perf_counter(), 0
+    try:
+        for epoch in range(SVM_EPOCHS):
+            for idx in tiered.batch_iter(epoch):
+                got, want = tiered(idx), direct(idx)
+                check(np.array_equal(got.lengths, want.lengths),
+                      f"epoch {epoch}: a tiered batch's lengths differ from the direct read's")
+                for i in range(len(want)):
+                    check(np.array_equal(got.record(i), want.record(i)),
+                          f"epoch {epoch}: record {idx[i]} differs through the tier")
+                records += len(want)
+    finally:
+        tiered.close()
+    print(f"  tier byte check: {records} records over {SVM_EPOCHS} epochs identical to the "
+          f"direct read ({tiered.cache.hits} served from DRAM) in {time.perf_counter() - t0:.1f} s")
+
+
 def svm_phase(dev, seed=0):
     """The sparse-SVM training path at webspam width, driven as the JAX
     package's acceptance test drives it; returns csr_dot's kernel row."""
@@ -916,11 +1006,12 @@ def svm_phase(dev, seed=0):
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import (InputPipeline, LIRSShuffler, LocationGenerator,
-                                  ReadPathConfig, build_data_plane)
+                                  ReadPathConfig, build_data_plane, close_data_plane)
     from repro_torch.data.synthetic import make_classification_dataset
     from repro_torch.kernels import ops, ref
-    from repro_torch.obs import trace
+    from repro_torch.obs import drift, trace
     from repro_torch.storage import RaggedBufferRing, RecordStore
+    from repro_torch.storage.record_store import IOStats
     from repro_torch.svm import pack_csr_batch, pad_csr
     from repro_torch.svm.dcd import DCDSolver
 
@@ -945,10 +1036,27 @@ def svm_phase(dev, seed=0):
 
         sh = LIRSShuffler(SVM_TRAIN, SVM_BLOCK, seed=seed)
         ring = RaggedBufferRing(SVM_BLOCK * (8 + 8 * SVM_NNZ[1]), SVM_BLOCK, depth=4)
-        plane = build_data_plane(store, ReadPathConfig(mode="ragged", ring=ring, workers=4))
+        # the tier: a Belady DRAM cache of a quarter of the training rows'
+        # bytes, fed along the shuffler's index stream
+        budget = int(SVM_CACHE_FRAC * store.lengths()[:SVM_TRAIN].sum())
+
+        def tiered(ring=None):
+            return build_data_plane(store, ReadPathConfig(
+                mode="ragged", ring=ring, workers=4, shuffler=sh, cache_budget_bytes=budget,
+                eviction_policy="belady", max_epochs=SVM_EPOCHS))
+
+        svm_tier_bytes_check(tiered(), build_data_plane(
+            store, ReadPathConfig(mode="ragged", workers=4)))
+        plane = tiered(ring)
+        print(f"  tier: budget {budget / 1e6:.1f} MB, {plane.cache.capacity} slots of "
+              f"{plane.cache.slot_bytes} B ({plane.cache.capacity / SVM_TRAIN:.4f} of the rows), "
+              f"lookahead {plane.scheduler.lookahead} batches, planner {plane.planner}")
         solver = DCDSolver(dim, SVM_TRAIN, device=dev)
         host = {"dcd": 0.0, "pack": 0.0, "wait": 0.0}
         consumed, margin_calls, objs, accs = 0, 0, [], []
+        store.stats.reset()
+        snaps = [store.stats.snapshot()]
+        tier_before = _tier_counters(plane)
 
         ops.reset_launch_counts()
         with trace.tracing() as rec, _EventTimed(ops) as ev, \
@@ -958,7 +1066,7 @@ def svm_phase(dev, seed=0):
                 # the shuffler's batches and the pipeline's items arrive in
                 # the same order, so row j of a batch owns dual idx[j]
                 idx_iter = sh.epoch_batches(epoch)
-                pipe = InputPipeline(sh.epoch_batches, plane, prefetch=2,
+                pipe = InputPipeline(plane.batch_iter, plane, prefetch=2,
                                      num_producers=2, recycle_fn=ring.recycle)
                 for item in pipe.epoch(epoch):
                     idx = next(idx_iter)
@@ -970,6 +1078,12 @@ def svm_phase(dev, seed=0):
                     host["dcd"] += time.perf_counter() - t2
                     consumed += len(csr)
                 host["wait"] += pipe.stats.t_wait
+                snaps.append(store.stats.snapshot())
+                d, tier_now = IOStats.delta(snaps[-1], snaps[-2]), _tier_counters(plane)
+                print(f"  epoch {epoch} reads: storage {d['batch_records']} records, "
+                      f"{d['bytes_read'] / 1e6:.1f} MB in {d['batch_ios']} I/Os; tier " + ", ".join(
+                          f"{k} {tier_now[k] - tier_before[k]}" for k in tier_now))
+                tier_before = tier_now
                 objs.append(solver.primal_objective_csr(train))
                 margins = solver.margins_csr(test)
                 margin_calls += 2
@@ -982,6 +1096,20 @@ def svm_phase(dev, seed=0):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         launches = ops.LAUNCHES["csr_dot"]
+        close_data_plane(plane)
+        check(store.stats.cache_hits == plane.cache.hits,
+              f"IOStats counts {store.stats.cache_hits} cache hits, the tier {plane.cache.hits}")
+        check(plane.cache.hits + plane.cache.misses == SVM_EPOCHS * SVM_TRAIN,
+              f"the tier served {plane.cache.hits + plane.cache.misses} records")
+        d = IOStats.delta(snaps[2], snaps[1])
+        report = drift.single_host_report(
+            n_records=SVM_TRAIN, record_bytes=store.record_size or 0,
+            capacity_frac=min(1.0, plane.cache.capacity / SVM_TRAIN), policy="belady",
+            planner_on=bool(plane.planner),
+            window_frac=min(1.0, plane.scheduler.lookahead * SVM_BLOCK / SVM_TRAIN),
+            batch_frac=SVM_BLOCK / SVM_TRAIN, epochs=1, storage_records=d["batch_records"],
+            storage_ios=d["batch_ios"], storage_bytes=d["bytes_read"])
+        print(f"  drift report, epoch 1: {json.dumps(report.to_dict())}")
         kernel_ms = ev.device_ms()
         spans = {}
         for e in rec.drain():
@@ -1233,16 +1361,63 @@ def train_phase(dev):
     check(steps == 8, f"{steps} steps, want 8")
     check(len(summary["losses"]) == 8 and all(np.isfinite(summary["losses"])),
           f"losses {summary['losses']}")
+    _check_scan_launches(launches, dict(ops.ENTRY_LAUNCHES), steps, rg)
+    return launches
+
+
+def _check_scan_launches(launches, entries, steps, rg):
+    """Two forward scans (the step and the remat recompute) and one
+    reverse scan a step for each RG-LRU layer, all on the ring kernel."""
     check(launches["rglru_scan"] == steps * 2 * rg,
           f"rglru_scan launched {launches['rglru_scan']} times, want {steps * 2 * rg}")
     check(launches["rglru_scan_bwd"] == steps * rg,
           f"rglru_scan_bwd launched {launches['rglru_scan_bwd']} times, want {steps * rg}")
-    entries = dict(ops.ENTRY_LAUNCHES)
     print(f"  launches by entry point {entries}")
     for name, entry in (("rglru_scan", "repro_torch_rglru_scan_ring"),
                         ("rglru_scan_bwd", "repro_torch_rglru_scan_ring_bwd")):
         ring = entries.get(entry, 0)
         check(ring == launches[name], f"the ring kernel ran {ring} of {launches[name]} {name}")
+
+
+def train_tier_phase(dev):
+    """LM training at full width again, through the tiered read path: 16
+    records, two epochs, half the records in a Belady DRAM tier, and the
+    drift report priced on Optane.  Counts its own launches from 0."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    gc.collect()
+    torch.cuda.empty_cache()  # the direct run's state
+    torch.cuda.reset_peak_memory_stats(dev)
+    print("training recurrentgemma-2b at full width through the tier:", " ".join(TRAIN_TIER_ARGS))
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    summary = train.main(TRAIN_TIER_ARGS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    cfg = get_config("recurrentgemma-2b")
+    rg = sum(p.count("rglru") * r for p, r in cfg.stages)
+    steps, secs = summary["steps"], summary["step_seconds"]
+    print(f"  run incl. init and data {wall:.1f} s; launches {launches}")
+    print(f"  losses {summary['losses']}")
+    print(f"  step seconds {[round(x, 4) for x in secs]}; median of steps 2-{steps} "
+          f"{statistics.median(secs[1:]):.4f} s; peak memory {summary['peak_memory_gib']:.2f} GiB")
+    print(f"  Eq. 1: t_load {summary['t_load']:.4f} s, t_comp {summary['t_comp']:.4f} s, "
+          f"t_unhidden_load {summary['t_unhidden_load']:.4f} s")
+    print(f"  cache {json.dumps(summary.get('cache'))}")
+    print(f"  drift {json.dumps(summary.get('drift'))}")
+    check(steps == 32, f"{steps} steps, want 32")
+    check(len(summary["losses"]) == 32 and all(np.isfinite(summary["losses"])),
+          f"losses {summary['losses']}")
+    _check_scan_launches(launches, dict(ops.ENTRY_LAUNCHES), steps, rg)
+    check("cache" in summary and "drift" in summary, "the summary lacks its cache or drift block")
+    check(summary["drift"]["ok"], "the drift report disagrees with the closed forms")
     return launches
 
 
@@ -1357,6 +1532,9 @@ def main() -> int:
     t0 = time.perf_counter()
     train_launches = train_phase(dev)
     print(f"training phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    train_tier_phase(dev)
+    print(f"tiered training phase {time.perf_counter() - t0:.1f} s")
     train_profile_phase(dev)
     for name in ("rglru_scan", "rglru_scan_bwd"):
         rows.append(dict(scans[name], launches=train_launches[name]))

@@ -12,10 +12,13 @@ benchmarks, tests) calls; ``store_fetch_fn(**kwargs)`` survives as a
 deprecated shim that builds the equivalent config.
 
 The returned *data plane* is a plain ``fetch_fn(indices) -> batch``
-closure over the direct (dense or ragged) batch engines.  The tiered
-DRAM path of the JAX package (``repro.prefetch``) is not ported yet:
-a config with ``cache_budget_bytes > 0`` raises.  :func:`batch_iter_fn_of`
-and :func:`close_data_plane` keep the generic callers' interface.
+closure for the direct paths, or a
+:class:`~repro_torch.prefetch.fetcher.PrefetchingFetcher` (itself
+callable) for the tiered path, with ``plane.batch_iter``, ``plane.cache``
+and ``plane.close()``.  :func:`batch_iter_fn_of` and
+:func:`close_data_plane` paper over the difference for generic callers.
+The tier is single-host: a config with ``remote`` or ``placement`` (the
+JAX package's cross-host tier) raises.
 """
 from __future__ import annotations
 
@@ -55,8 +58,9 @@ class ReadPathConfig:
     * ``eviction_policy`` (``lru`` | ``belady``) and
       ``prefetch_planner`` (None = auto: on for belady) — retention and
       admission of the tier.
-    * ``remote`` / ``placement`` — the cross-host tier
-      (:mod:`repro.prefetch.distributed`).
+    * ``remote`` / ``placement`` — the cross-host tier of the JAX
+      package (``repro.prefetch.distributed``); not ported, and refused
+      by :func:`build_data_plane`.
     """
 
     mode: str = "auto"
@@ -114,11 +118,18 @@ def build_data_plane(
     optionally from a :class:`RaggedBufferRing`), and ``'auto'`` picks
     ragged for variable-length stores and dense otherwise.
 
-    With a budget it would be the tiered read path (the JAX package's
-    :class:`~repro.prefetch.fetcher.PrefetchingFetcher`, a DRAM cache fed
-    along the shuffler's index stream).  The port has no such tier yet,
-    so a budget raises ``NotImplementedError`` rather than silently
-    taking the direct path.
+    With a budget (and a ``shuffler``) it is the tiered read path: a
+    :class:`~repro_torch.prefetch.fetcher.PrefetchingFetcher` serving
+    resident records from a byte-budgeted DRAM cache, prefetching future
+    batches along the shuffler's known index stream, evicting by
+    ``eviction_policy`` and admission-filtering by ``prefetch_planner``
+    (None = auto: on for a Belady tier).  Batch bytes are identical with
+    the tier on or off, for every policy and planner setting; pass the
+    returned fetcher's ``batch_iter`` as the pipeline's
+    ``batch_iter_fn`` so the lookahead window re-syncs at epoch
+    boundaries.  ``remote`` / ``placement`` (the cross-host tier) are
+    not ported and raise ``NotImplementedError`` rather than being
+    ignored.
 
     Pair with ``InputPipeline(recycle_fn=ring.recycle)`` for the
     allocation-free steady state; both ring classes ignore foreign
@@ -126,11 +137,28 @@ def build_data_plane(
     batches.
     """
     cfg = (config or ReadPathConfig()).validate()
-    if cfg.tiered:
+    if cfg.remote is not None or cfg.placement is not None:
         raise NotImplementedError(
-            "cache_budget_bytes > 0 selects the tiered DRAM read path "
-            "(PrefetchingFetcher over the shuffler's index stream), a later "
-            "slice of the port; use cache_budget_bytes=0"
+            "remote= / placement= select the multi-host tier (peer fetches "
+            "over a shared placement), a later slice of the port; the "
+            "port's tier is single-host"
+        )
+    if cfg.tiered:
+        from repro_torch.prefetch.fetcher import PrefetchingFetcher
+
+        return PrefetchingFetcher(
+            store,
+            cfg.shuffler,
+            budget_bytes=cfg.cache_budget_bytes,
+            lookahead=cfg.lookahead,
+            mode=cfg.mode,
+            ring=cfg.ring,
+            gap_bytes=cfg.gap_bytes,
+            workers=cfg.workers,
+            background=cfg.prefetch_background,
+            max_epochs=cfg.max_epochs,
+            policy=cfg.eviction_policy,
+            planner=cfg.prefetch_planner,
         )
     mode = cfg.mode
     if mode == "auto":

@@ -1,13 +1,20 @@
-"""Shared launcher flags for the read path (the port's copy of
-``repro.launch.args``: ``add_read_path_args`` and
-``make_shuffler_from_args``).
+"""Shared launcher flags for the read path — declared once, parsed into
+:class:`~repro_torch.core.readpath.ReadPathConfig` (the port's copy of
+``repro.launch.args``).
 
-The launchers declare the same flags as the JAX ones; the port runs only
-``--cache-mb 0`` so far, and the launchers refuse the rest of the tier.
+``launch/train.py`` and ``launch/serve.py`` both front the same tiered
+read path: :func:`add_read_path_args` declares the flags once,
+:func:`config_from_args` round-trips them into a ``ReadPathConfig``,
+and :func:`make_shuffler_from_args` builds the shuffle strategy the
+tier's clairvoyance rides on.  The launchers take the same flags as the
+JAX ones; the tier is single-host (``--hosts 1``).
 """
 from __future__ import annotations
 
 import argparse
+from typing import Optional
+
+from repro_torch.core.readpath import ReadPathConfig
 
 SHUFFLER_CHOICES = ("lirs", "lirs_page", "bmf", "tfip", "corgipile", "corgi2")
 
@@ -43,6 +50,38 @@ def add_read_path_args(ap: argparse.ArgumentParser) -> argparse.ArgumentParser:
                         "plans instead of reading them twice (auto = on "
                         "for belady, off for lru)")
     return ap
+
+
+def planner_from_args(args) -> Optional[bool]:
+    """``--prefetch-planner`` tri-state → ``ReadPathConfig`` value
+    (None = auto)."""
+    return None if args.prefetch_planner == "auto" else (
+        args.prefetch_planner == "on"
+    )
+
+
+def config_from_args(
+    args,
+    *,
+    shuffler=None,
+    max_epochs: Optional[int] = None,
+    mode: str = "auto",
+    ring=None,
+) -> ReadPathConfig:
+    """Round-trip the :func:`add_read_path_args` flags into a validated
+    :class:`ReadPathConfig`.  ``shuffler`` / ``max_epochs`` / ``ring``
+    come from the launcher (they are built objects, not flags)."""
+    return ReadPathConfig(
+        mode=mode,
+        ring=ring,
+        workers=args.io_workers,
+        shuffler=shuffler,
+        cache_budget_bytes=int(args.cache_mb * 2**20),
+        lookahead=args.prefetch_lookahead,
+        max_epochs=max_epochs,
+        eviction_policy=args.eviction_policy,
+        prefetch_planner=planner_from_args(args),
+    ).validate()
 
 
 def make_shuffler_from_args(args, store, batch: int, seed: int):

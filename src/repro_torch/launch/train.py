@@ -8,13 +8,21 @@ report.
     PYTHONPATH=src python -m repro_torch.launch.train --arch recurrentgemma-2b \\
         --smoke --device cpu --steps 4
 
+    PYTHONPATH=src python -m repro_torch.launch.train --arch recurrentgemma-2b \\
+        --smoke --device cpu --num-records 16 --seq-len 32 --batch 1 \\
+        --epochs 2 --cache-mb 0.001 --prefetch-lookahead 4 \\
+        --eviction-policy belady --drift-device optane
+
 The flags and summary are those of ``repro.launch.train``, plus
 ``--device`` (``cuda`` by default; asking for CUDA without one raises).
 The summary adds the device, each step's loss and host-clock seconds
-(ending in the sync that reads the loss) and the device's peak memory.  The tiered
-read path (``--cache-mb > 0``), its multi-host cluster (``--hosts > 1``)
-and the drift report (``--drift-device``) are not ported yet and are
-refused, so the summary has no ``cache``, ``distributed`` or ``drift``.
+(ending in the sync that reads the loss) and the device's peak memory.
+``--cache-mb > 0`` reads through the tiered DRAM path (clairvoyant
+prefetch along the shuffler's index stream; batch bytes unchanged) and
+adds the summary's ``cache`` block, and, over two or more epochs, the
+``drift`` block (``--drift-device`` also prices the reads through a
+Table 2 device model).  The multi-host cluster (``--hosts > 1``) is not
+ported yet and is refused, so the summary has no ``distributed``.
 """
 from __future__ import annotations
 
@@ -26,13 +34,18 @@ import tempfile
 import torch
 
 from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.core.readpath import build_data_plane
 from repro_torch.data.synthetic import decode_token_batch, make_token_dataset
 from repro_torch.device import resolve_device
-from repro_torch.launch.args import add_read_path_args, make_shuffler_from_args
+from repro_torch.launch.args import (
+    add_read_path_args,
+    config_from_args,
+    make_shuffler_from_args,
+)
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 from repro_torch.storage.faults import FaultInjector, FaultSpec
-from repro_torch.storage.record_store import RecordStore
+from repro_torch.storage.record_store import IOStats, RecordStore
 from repro_torch.train.loop import Trainer, TrainLoopConfig
 from repro_torch.train.optimizer import AdamWConfig
 
@@ -76,21 +89,20 @@ def build_argparser():
                          "gauges, latency histograms) as JSON here at exit")
     ap.add_argument("--drift-device", default="",
                     choices=["", "hdd", "ssd", "optane"],
-                    help="drift report against a Table 2 device model "
-                         "(needs the tiered read path; not ported yet)")
+                    help="also price measured vs modeled storage reads "
+                         "through this Table 2 device model in the drift "
+                         "report (needs --cache-mb > 0)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return ap
 
 
 def _refuse_unported(args) -> None:
-    for flag, on in (("--cache-mb > 0", args.cache_mb > 0), ("--hosts > 1", args.hosts > 1),
-                     ("--drift-device", bool(args.drift_device))):
-        if on:
-            raise NotImplementedError(
-                f"{flag} needs the tiered read path (DRAM cache, clairvoyant "
-                "prefetch, multi-host plane), a later slice of the port; run "
-                "with --cache-mb 0 --hosts 1"
-            )
+    if args.hosts > 1:
+        raise NotImplementedError(
+            "--hosts > 1 needs the multi-host tiered read path (peer "
+            "fetches over a shared placement), a later slice of the port; "
+            "run with --hosts 1"
+        )
 
 
 def main(argv=None):
@@ -129,7 +141,26 @@ def main(argv=None):
 def _train(args, cfg, device, store, injector, registry):
     seq = args.seq_len
     shuffler = make_shuffler_from_args(args, store, args.batch, args.seed)
-    if store.variable:
+    fetcher = None
+    batch_iter_fn = None
+    if args.cache_mb > 0:
+        # tiered read path: DRAM cache + clairvoyant prefetch along the
+        # shuffler's known index stream (batch bytes unchanged).
+        # max_epochs stops the lookahead from prefetching past the last
+        # epoch (reads nobody would consume, stalling shutdown)
+        fetcher = build_data_plane(
+            store,
+            config_from_args(args, shuffler=shuffler, max_epochs=args.epochs),
+        )
+        batch_iter_fn = fetcher.batch_iter
+
+        if store.variable:
+            def fetch(idx):
+                return decode_token_batch(fetcher(idx).tolist(), seq)
+        else:
+            def fetch(idx):
+                return decode_token_batch(fetcher(idx), seq)
+    elif store.variable:
         def fetch(idx):
             return decode_token_batch(
                 store.read_batch_coalesced(idx, workers=args.io_workers), seq
@@ -141,27 +172,44 @@ def _train(args, cfg, device, store, injector, registry):
                 store.read_batch_into(idx, workers=args.io_workers), seq
             )
 
-    trainer = Trainer(
-        cfg,
-        fetch,
-        shuffler,
-        TrainLoopConfig(
-            epochs=args.epochs, max_steps=args.steps, ckpt_dir=args.ckpt_dir,
-            fail_at_step=args.fail_at_step, seed=args.seed,
-        ),
-        opt_cfg=AdamWConfig(lr=args.lr, warmup_steps=10),
-        num_producers=args.io_producers,
-        device=device,
-    )
-    obs_metrics.bind_store(registry, store)
-    obs_metrics.bind_pipeline(registry, trainer.pipeline)
-    if injector is not None:
-        obs_metrics.bind_fault_log(registry, injector.log)
-    if args.resume and trainer.try_resume():
-        print(f"resumed at step {trainer.global_step}")
-    if device.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(device)
-    summary = trainer.train()
+    # per-epoch counter snapshots for the drift report: cumulative at each
+    # epoch end, so adjacent deltas give per-epoch (steady-state) windows
+    epoch_snaps: list = []
+
+    def epoch_hook(epoch):
+        epoch_snaps.append(store.stats.snapshot())
+
+    try:
+        trainer = Trainer(
+            cfg,
+            fetch,
+            shuffler,
+            TrainLoopConfig(
+                epochs=args.epochs, max_steps=args.steps, ckpt_dir=args.ckpt_dir,
+                fail_at_step=args.fail_at_step, seed=args.seed,
+            ),
+            opt_cfg=AdamWConfig(lr=args.lr, warmup_steps=10),
+            num_producers=args.io_producers,
+            batch_iter_fn=batch_iter_fn,
+            epoch_hook=epoch_hook,
+            device=device,
+        )
+        obs_metrics.bind_store(registry, store)
+        obs_metrics.bind_pipeline(registry, trainer.pipeline)
+        if fetcher is not None:
+            obs_metrics.bind_fetcher(registry, fetcher)
+        if injector is not None:
+            obs_metrics.bind_fault_log(registry, injector.log)
+        if args.resume and trainer.try_resume():
+            print(f"resumed at step {trainer.global_step}")
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        summary = trainer.train()
+    finally:
+        if fetcher is not None:
+            fetcher.close()
+    if fetcher is not None:
+        summary["cache"] = _cache_block(fetcher)
     st = store.stats
     summary["io_resilience"] = {
         "verify": store.verify,
@@ -173,6 +221,11 @@ def _train(args, cfg, device, store, injector, registry):
     }
     if injector is not None:
         summary["io_resilience"]["injected"] = injector.counters()
+    # model-vs-measured drift over the steady (warm) epochs: the cold
+    # first epoch is all misses by construction, so it only anchors the
+    # delta window
+    if len(epoch_snaps) >= 2 and fetcher is not None:
+        summary["drift"] = _drift_report(args, store, fetcher, epoch_snaps).to_dict()
     summary["device"] = str(device)
     summary["losses"] = [h["loss"] for h in trainer.history]
     summary["step_seconds"] = trainer.step_seconds
@@ -190,6 +243,52 @@ def _train(args, cfg, device, store, injector, registry):
             summary["trace"] = {"path": args.trace, "events": len(doc["traceEvents"])}
         obs_trace.disable()
     return summary
+
+
+def _cache_block(fetcher) -> dict:
+    """The summary's ``cache`` block, field for field the JAX launcher's."""
+    cache, sched = fetcher.cache, fetcher.scheduler
+    return {
+        "policy": cache.policy,
+        "planner": fetcher.planner,
+        "budget_bytes": cache.budget_bytes,
+        "used_bytes": cache.used_bytes,
+        "demand_hits": cache.hits,
+        "demand_misses": cache.misses,
+        "window_hits": sched.window_hits,
+        "prefetched_records": fetcher.prefetch_records,
+        "rejected_inserts": cache.rejected,
+        "planned_skips": cache.planned_skips,
+        "doomed_records": sched.doomed_records,
+        "probe_skips": fetcher.probe_skips,
+        "stray_unpins": cache.stray_unpins,
+        "scratch_copies": cache.scratch_copies,
+        "invalidations": cache.invalidations,
+        "plans_failed": fetcher.plans_failed,
+        "worker_restarts": fetcher.worker_restarts,
+    }
+
+
+def _drift_report(args, store, fetcher, epoch_snaps):
+    """The single-host drift report over the epochs after the first."""
+    from repro_torch.obs import drift
+
+    n = store.num_records
+    d = IOStats.delta(epoch_snaps[-1], epoch_snaps[0])
+    return drift.single_host_report(
+        n_records=n,
+        record_bytes=store.record_size or 0,
+        capacity_frac=min(1.0, fetcher.cache.capacity / n),
+        policy=args.eviction_policy,
+        planner_on=bool(fetcher.planner),
+        window_frac=min(1.0, args.prefetch_lookahead * args.batch / n),
+        batch_frac=min(1.0, args.batch / n),
+        epochs=len(epoch_snaps) - 1,
+        storage_records=d["batch_records"],
+        storage_ios=d["batch_ios"],
+        storage_bytes=d["bytes_read"],
+        device=args.drift_device or None,
+    )
 
 
 if __name__ == "__main__":

@@ -2,6 +2,7 @@
 
 - request:  Request/Completion, StepClock, synthetic offered-load workloads
 - engine:   slot-based continuous/static batching prefill+decode engine
+- reuse:    estimated-reuse admission for the request-stream feature cache
 """
 from repro_torch.serve.engine import SERVE_MODES, ServeEngine  # noqa: F401
 from repro_torch.serve.request import (  # noqa: F401
@@ -11,4 +12,8 @@ from repro_torch.serve.request import (  # noqa: F401
     percentile,
     synthetic_workload,
     zipf_probabilities,
+)
+from repro_torch.serve.reuse import (  # noqa: F401
+    EstimatedReusePolicy,
+    RequestStreamCache,
 )

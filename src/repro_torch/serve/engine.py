@@ -14,6 +14,10 @@ the ``serve/arena_alloc`` trace instant marks it).  Each step:
    over the whole arena; every row appends at its own position.
    Finished rows (budget reached / EOS) free their slots immediately.
 
+Requests may carry ``feature_ids``; admission serves them through the
+attached :class:`~repro_torch.serve.reuse.RequestStreamCache`
+(estimated-reuse tier, host memory) before the prefill.
+
 The arena lives on the parameters' device and is updated in place.  The
 host waits on the device at exactly two points, as the JAX engine does:
 the first token of an admission (``.item()``) and the step's next tokens
@@ -81,11 +85,6 @@ class ServeEngine:
                     raise NotImplementedError(
                         "moe blocks are servable but not ported yet"
                     )
-        if feature_cache is not None:
-            raise NotImplementedError(
-                "the request-stream feature tier (--cache-mb > 0) is a later "
-                "slice of the port"
-            )
         self.cfg = cfg
         self.params = params
         self.device = params["embed"].device
@@ -94,6 +93,7 @@ class ServeEngine:
         self.prompt_capacity = int(prompt_capacity)
         self.max_new_tokens = int(max_new_tokens)
         self.capacity = self.prompt_capacity + self.max_new_tokens
+        self.feature_cache = feature_cache
         self.eos_id = eos_id
         self.clock = clock or StepClock()
 
@@ -176,6 +176,8 @@ class ServeEngine:
 
     def _admit_one(self, req: Request, slot: int) -> None:
         now = self.clock.now()
+        if self.feature_cache is not None and req.feature_ids is not None:
+            self.feature_cache.fetch(req.feature_ids, now)
         padded = np.zeros((1, self.prompt_capacity), np.int32)
         padded[0, : len(req.prompt)] = req.prompt
         t0 = time.perf_counter()

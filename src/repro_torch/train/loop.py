@@ -8,15 +8,18 @@
 
 The step runs on ``device`` (``cuda`` unless the caller asks for the CPU).
 Each batch's decoded numpy arrays are copied there synchronously
-(``to_device``).  ``_log`` reads every metric with ``float``, which
-waits for the device, so the pipeline's ``t_comp`` holds the device's
-time of the step (Eq. 1), as in the JAX loop.
+(``to_device``, the default ``put_fn``) in the consumer thread; the
+pipeline hands the raw item to ``recycle_fn`` only after the step, so a
+ring buffer is never recycled under a copy still in flight.  ``_log``
+reads every metric with ``float``, which waits for the device, so the
+pipeline's ``t_comp`` holds the device's time of the step (Eq. 1), as in
+the JAX loop.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -90,21 +93,34 @@ class Trainer:
         shuffler,
         loop_cfg: TrainLoopConfig,
         opt_cfg: AdamWConfig = AdamWConfig(),
+        put_fn: Optional[Callable] = None,
         num_producers: int = 1,
+        recycle_fn: Optional[Callable] = None,
+        batch_iter_fn: Optional[Callable] = None,
+        epoch_hook: Optional[Callable[[int], None]] = None,
         device="cuda",
     ):
         """Parameters are drawn from a ``torch.Generator`` seeded with
-        ``loop_cfg.seed`` on ``device``."""
+        ``loop_cfg.seed`` on ``device``.  ``put_fn`` moves a fetched batch
+        to the device (default ``to_device(device)``); ``recycle_fn`` gets
+        the raw fetched item back once the step that consumed it is done.
+        ``batch_iter_fn`` overrides the default ``shuffler.epoch_batches``
+        source — e.g. a ``PrefetchingFetcher.batch_iter``, which re-syncs
+        the clairvoyant lookahead window at each epoch boundary while
+        yielding the identical batch sequence.  ``epoch_hook(epoch)`` fires
+        after each completed epoch (the training launcher snapshots the
+        I/O counters there for the drift report)."""
         self.device = resolve_device(device)
         self.cfg = cfg
         self.loop_cfg = loop_cfg
         self.optimizer = AdamW(opt_cfg)
         self.shuffler = shuffler
         self.pipeline = InputPipeline(
-            batch_iter_fn=shuffler.epoch_batches,
+            batch_iter_fn=batch_iter_fn or shuffler.epoch_batches,
             fetch_fn=fetch_fn,
-            put_fn=to_device(self.device),
+            put_fn=put_fn or to_device(self.device),
             num_producers=num_producers,
+            recycle_fn=recycle_fn,
         )
         self.step_fn = make_train_step(cfg, self.optimizer)
         gen = torch.Generator(device=self.device).manual_seed(loop_cfg.seed)
@@ -114,6 +130,7 @@ class Trainer:
         self.start_step_in_epoch = 0
         # the newest two checkpoints are kept, the JAX loop's default
         self.ckpt = CheckpointManager(loop_cfg.ckpt_dir, keep=2) if loop_cfg.ckpt_dir else None
+        self.epoch_hook = epoch_hook
         self.history: list = []
         self.step_seconds: list = []  # host clock per step, ending in _log's sync
 
@@ -158,6 +175,8 @@ class Trainer:
                         self._save(epoch, step_in_epoch)
                     if lc.max_steps and self.global_step >= lc.max_steps:
                         return self.summary()
+                if self.epoch_hook is not None:
+                    self.epoch_hook(epoch)
                 if self.ckpt:
                     self._save(epoch + 1, 0)
         except (KeyboardInterrupt, PreemptionError):

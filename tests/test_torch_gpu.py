@@ -163,6 +163,56 @@ def test_csr_dot_kernel_on_card_bit_exact(cuda, b, k, d, gather):
     assert empty.shape == (0,) and ops.LAUNCHES["csr_dot"] == before + 1
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("policy", ["belady", "lru"])
+def test_tiered_ragged_plane_feeds_csr_dot_on_card(cuda, tmp_path, policy):
+    """The SVM path's read side with the DRAM tier on: a small sparse
+    store through the tiered ragged plane (a quarter of the rows cached,
+    the fetcher's ``batch_iter`` driving the pipeline) into CSR packing
+    and ``csr_dot`` on the card.  Every batch's records equal the direct
+    plane's, every margin is bit-exact against ``ref.csr_dot`` on the same
+    device tensors, one launch a batch, and the store's counters
+    reconcile with the cache's."""
+    from repro_torch.core import (InputPipeline, LIRSShuffler, LocationGenerator,
+                                  ReadPathConfig, build_data_plane, close_data_plane)
+    from repro_torch.data.synthetic import make_classification_dataset
+    from repro_torch.storage import RaggedBufferRing, RecordStore
+    from repro_torch.svm import pack_csr_batch, pad_csr
+
+    n, dim, batch, epochs = 400, 5000, 50, 2
+    path = make_classification_dataset(str(tmp_path / "s.rrec"), n, dim, sparse=True,
+                                       nnz_range=(20, 90), seed=3).path
+    store = RecordStore(path)
+    LocationGenerator().generate(store)
+    sh = LIRSShuffler(n, batch, seed=1)
+    ring = RaggedBufferRing(batch * (8 + 8 * 90), batch, depth=4)
+    plane = build_data_plane(store, ReadPathConfig(
+        mode="ragged", ring=ring, workers=2, shuffler=sh, max_epochs=epochs,
+        cache_budget_bytes=(n // 4) * int(store.lengths().max()), eviction_policy=policy))
+    direct = build_data_plane(store, ReadPathConfig(mode="ragged"))
+    w = torch.randn(dim, generator=torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    before, batches = ops.LAUNCHES["csr_dot"], 0
+    try:
+        for e in range(epochs):
+            idx_iter = sh.epoch_batches(e)
+            pipe = InputPipeline(plane.batch_iter, plane, prefetch=2, num_producers=2,
+                                 recycle_fn=ring.recycle)
+            for item in pipe.epoch(e):
+                assert item.tolist() == direct(next(idx_iter)).tolist()
+                idx2d, val2d = pad_csr(pack_csr_batch(item, dim))
+                idx = torch.from_numpy(idx2d).to(cuda)
+                val = torch.from_numpy(val2d).to(cuda)
+                assert torch.equal(ops.csr_dot(idx, val, w), ref.csr_dot(idx, val, w))
+                batches += 1
+    finally:
+        close_data_plane(plane)
+    torch.cuda.synchronize()
+    assert batches == epochs * n // batch == ops.LAUNCHES["csr_dot"] - before
+    assert store.stats.cache_hits == plane.cache.hits > 0
+    assert plane.cache.hits + plane.cache.misses == epochs * n
+    store.close()
+
+
 # (n, d, b, rows_per_block, rows_per_step, offset rows): the DNN path's
 # feature and label tables (ragged last batch of 60), page blocks, blocks
 # of several 16 KB ring chunks, widths that leave 4- or 2-byte words, and

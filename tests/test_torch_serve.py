@@ -121,8 +121,6 @@ def test_engine_refuses_unservable_and_unported(cfg, params):
         _engine(cfg.replace(stages=((("attn", "local_attn"), 1),)), params)
     with pytest.raises(NotImplementedError, match="moe"):
         _engine(cfg.replace(stages=((("moe",), 1),)), params)
-    with pytest.raises(NotImplementedError, match="cache-mb"):
-        _engine(cfg, params, feature_cache=object())
 
 
 # ------------------------------------------- engine: one arena, forever
@@ -179,3 +177,42 @@ def test_same_completion_tokens_as_jax_engine(mode):
     assert got == want
     assert max(seen) >= teng.capacity
     assert (teng.decode_steps, teng.prefills) == (jeng.decode_steps, jeng.prefills)
+
+
+@pytest.mark.parametrize("policy", ["belady", "lru"])
+def test_feature_cache_engine_matches_jax_engine(tmp_path, policy):
+    """Each admission serves the request's Zipf feature ids through a
+    ``RequestStreamCache`` before its prefill: completions, step counts,
+    the cache's counters and the store's equal the JAX engine's over one
+    feature file, and every fetched id is counted once."""
+    from repro.serve import RequestStreamCache as JaxStreamCache
+    from repro.storage.record_store import RecordStore as JaxStore
+    from repro_torch.data.synthetic import make_classification_dataset
+    from repro_torch.serve import RequestStreamCache
+    from repro_torch.storage.record_store import RecordStore
+
+    path = make_classification_dataset(str(tmp_path / "f.rrec"), 64, dim=16, seed=0).path
+    jcfg = jax_smoke().replace(dtype="float32")
+    tcfg = smoke_config().replace(dtype="float32")
+    jparams = jm.init_params(jcfg, jax.random.PRNGKey(2))
+    tparams = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams))
+    reqs = synthetic_workload(12, vocab=tcfg.vocab_size, offered_load=1.0, prompt_len=(2, 8),
+                              gen_len=(2, 6), num_features=64, features_per_request=4, seed=5)
+    assert all(r.feature_ids is not None for r in reqs)
+    ts, js = RecordStore(path), JaxStore(path)
+    budget = 16 * ts.record_size
+    tfc, jfc = RequestStreamCache(ts, budget, policy=policy), JaxStreamCache(js, budget, policy=policy)
+    kw = dict(max_batch=3, prompt_capacity=8, max_new_tokens=6)
+    teng = ServeEngine(tcfg, tparams, feature_cache=tfc, **kw)
+    jeng = JaxServeEngine(jcfg, jparams, feature_cache=jfc, **kw)
+    want = {c.rid: (c.tokens, c.first_token, c.finished) for c in jeng.run(reqs)}
+    got = {c.rid: (c.tokens, c.first_token, c.finished) for c in teng.run(reqs)}
+    assert got == want
+    assert (teng.decode_steps, teng.prefills) == (jeng.decode_steps, jeng.prefills)
+    counters = ("hits", "misses", "insertions", "evictions", "planned_skips", "used_bytes")
+    assert {k: getattr(tfc.cache, k) for k in counters} == {k: getattr(jfc.cache, k) for k in counters}
+    assert tfc.fetched == 12 * 4 == tfc.cache.hits + tfc.cache.misses
+    assert ts.stats.cache_hits == tfc.cache.hits and ts.stats.batch_records == tfc.cache.misses
+    assert tfc.cache.hits > 0
+    ts.close()
+    js.close()

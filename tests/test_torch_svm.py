@@ -282,6 +282,50 @@ def test_svm_path_matches_jax_end_to_end(tmp_path):
     ts.close()
 
 
+def test_svm_path_through_the_tier_matches_jax(tmp_path):
+    """The same path with the DRAM tier on in both packages (a Belady
+    tier holding a quarter of the rows, the ragged ring, the fetcher's
+    ``batch_iter`` feeding the pipeline): ``w`` and ``alpha`` are
+    bit-identical to the JAX run's and to the port's direct run, and the
+    store's counters reconcile with the cache's."""
+    n_train, dim, batch, epochs = 320, 64, 64, 3
+    js, ts = _stores(tmp_path, n_train, dim, (4, 16), seed=1)
+    budget = (n_train // 4) * int(ts.lengths().max())
+    solvers = {}
+    for key, store, shuffler, ring, mod in (
+            ("tier", ts, LIRSShuffler, RaggedBufferRing, None),
+            ("jax", js, JLIRS, JRing, "jax"),
+            ("direct", ts, LIRSShuffler, RaggedBufferRing, None)):
+        sh, rg = shuffler(n_train, batch, seed=5), ring(batch * 200, batch, depth=6)
+        cfg = dict(mode="ragged", ring=rg, workers=2, shuffler=sh, max_epochs=epochs,
+                   eviction_policy="belady", cache_budget_bytes=0 if key == "direct" else budget)
+        if mod == "jax":
+            plane = jbuild_data_plane(store, JReadPathConfig(**cfg))
+            pipe = JInputPipeline(plane.batch_iter, plane, prefetch=2, num_producers=3,
+                                  recycle_fn=rg.recycle)
+            solver, pack = JDCD(dim, n_train), jpack
+        else:
+            plane = build_data_plane(store, ReadPathConfig(**cfg))
+            pipe = InputPipeline(getattr(plane, "batch_iter", sh.epoch_batches), plane,
+                                 prefetch=2, num_producers=3, recycle_fn=rg.recycle)
+            solver, pack = DCDSolver(dim, n_train, device="cpu"), pack_csr_batch
+        store.stats.reset()
+        for e in range(epochs):
+            idx_iter = sh.epoch_batches(e)
+            for item in pipe.epoch(e):
+                solver.solve_block_csr(pack(item, dim), next(idx_iter), sweeps=3)
+        if key != "direct":
+            plane.close()
+            assert store.stats.cache_hits == plane.cache.hits > 0
+            assert plane.cache.hits + plane.cache.misses == epochs * n_train
+        solvers[key] = solver
+    for key in ("jax", "direct"):
+        np.testing.assert_array_equal(solvers["tier"].w, solvers[key].w)
+        np.testing.assert_array_equal(solvers["tier"].alpha, solvers[key].alpha)
+    js.close()
+    ts.close()
+
+
 # -------------------------------------------------- device and fallback
 
 
@@ -290,9 +334,10 @@ def test_no_silent_fallbacks(tmp_path):
                                        nnz_range=(2, 4), seed=0)
     ts = RecordStore(meta.path)
     LocationGenerator().generate(ts)
-    with pytest.raises(NotImplementedError, match="later slice"):
+    # the multi-host tier's peer source is refused, not ignored
+    with pytest.raises(NotImplementedError, match="multi-host"):
         build_data_plane(ts, ReadPathConfig(mode="ragged", shuffler=LIRSShuffler(20, 4),
-                                            cache_budget_bytes=1 << 20))
+                                            cache_budget_bytes=1 << 20, remote=object()))
     ts.close()
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

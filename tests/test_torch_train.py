@@ -37,6 +37,7 @@ from repro.train.loop import make_shuffler as jax_shuffler
 from repro.train.steps import make_train_step as jax_train_step
 from repro_torch.configs.granite_3_8b import smoke_config as torch_granite
 from repro_torch.configs.recurrentgemma_2b import smoke_config as torch_smoke
+from repro_torch.core.readpath import ReadPathConfig, build_data_plane
 from repro_torch.data.synthetic import decode_token_batch
 from repro_torch.kernels import ref
 from repro_torch.launch import train as launch
@@ -320,6 +321,72 @@ def test_trainer_losses_match_jax(pair, corpus, jax_run):
     assert len(tt.step_seconds) == 4
 
 
+def test_trainer_put_fn_and_recycle_fn(pair, corpus, jax_run):
+    """``put_fn`` moves each fetched batch; ``recycle_fn`` gets that raw
+    batch back after its step, once, in order; the losses are JAX's."""
+    jt, init = jax_run
+    store = RecordStore(corpus)
+    put, recycled = [], []
+
+    def put_fn(raw):
+        put.append(raw)
+        return {k: torch.from_numpy(v.copy()) for k, v in raw.items()}
+
+    tt = Trainer(pair[2], lambda idx: decode_token_batch(store.read_batch(idx), SEQ),
+                 make_shuffler("lirs", RECORDS, BATCH, seed=0),
+                 TrainLoopConfig(epochs=1, seed=0), opt_cfg=AdamWConfig(lr=3e-3, warmup_steps=2),
+                 put_fn=put_fn, recycle_fn=recycled.append, device="cpu")
+    _copy_params(tt.state["params"], init)
+    tt.train()
+    assert tt.global_step == len(put) == RECORDS // BATCH
+    assert len(recycled) == len(put) and all(a is b for a, b in zip(recycled, put))
+    for got, want in zip(tt.history, jt.history):
+        np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-5)
+    store.close()
+
+
+def test_trainer_batch_iter_fn_through_the_tier(pair, corpus, jax_run):
+    """``batch_iter_fn`` replaces the shuffler's batches: the tiered
+    plane's ``batch_iter`` feeds the pipeline and its fetcher the bytes;
+    the losses are the JAX direct run's."""
+    jt, init = jax_run
+    store = RecordStore(corpus)
+    sh = make_shuffler("lirs", RECORDS, BATCH, seed=0)
+    plane = build_data_plane(store, ReadPathConfig(shuffler=sh, cache_budget_bytes=16 * 132,
+                                                   max_epochs=1, eviction_policy="belady"))
+    epochs = []
+
+    def batch_iter(epoch):
+        epochs.append(epoch)
+        return plane.batch_iter(epoch)
+
+    tt = Trainer(pair[2], lambda idx: decode_token_batch(plane(idx), SEQ), sh,
+                 TrainLoopConfig(epochs=1, max_steps=4, seed=0),
+                 opt_cfg=AdamWConfig(lr=3e-3, warmup_steps=2), batch_iter_fn=batch_iter,
+                 device="cpu")
+    _copy_params(tt.state["params"], init)
+    tt.train()
+    plane.close()
+    assert epochs == [0] and plane.cache.hits + plane.cache.misses >= 4 * BATCH
+    for got, want in zip(tt.history, jt.history):
+        np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-5)
+    store.close()
+
+
+def test_trainer_epoch_hook_fires_after_each_completed_epoch(pair, corpus):
+    """``epoch_hook(epoch)`` runs once an epoch's last step is done, and
+    not for an epoch that ``max_steps`` cut short."""
+    store, fired = RecordStore(corpus), []
+    tt = Trainer(pair[2], lambda idx: decode_token_batch(store.read_batch(idx), SEQ),
+                 make_shuffler("lirs", RECORDS, BATCH, seed=0),
+                 TrainLoopConfig(epochs=2, max_steps=12, seed=0),
+                 opt_cfg=AdamWConfig(lr=3e-3, warmup_steps=2),
+                 epoch_hook=lambda epoch: fired.append((epoch, tt.global_step)), device="cpu")
+    tt.train()
+    assert tt.global_step == 12 and fired == [(0, RECORDS // BATCH)]
+    store.close()
+
+
 def test_jax_checkpoint_restores_into_port(pair, corpus, jax_run, tmp_path):
     """A checkpoint the JAX package wrote (its trainer's state after 4
     steps) restores into the port's state, leaf for leaf."""
@@ -417,10 +484,55 @@ def test_launcher_smoke_cpu_runs_and_resumes(tmp_path):
     assert s2["io_resilience"]["retries"] > 0
 
 
-@pytest.mark.parametrize("flags", [["--cache-mb", "1"], ["--hosts", "2"], ["--drift-device", "ssd"]])
+@pytest.mark.parametrize("flags", [["--hosts", "2"], ["--hosts", "2", "--cache-mb", "1"],
+                                   ["--hosts", "4", "--cache-mb", "1", "--drift-device", "ssd"]])
 def test_launcher_refuses_the_unported_tier(flags):
-    with pytest.raises(NotImplementedError, match="tiered read path"):
+    """The multi-host tier is not ported: ``--hosts > 1`` raises, with or
+    without the single-host tier's flags."""
+    with pytest.raises(NotImplementedError, match="multi-host tiered read path"):
         launch.main(ARGS + flags)
+
+
+# the tiered read path at smoke size: 16 token records of 17 int32 (68
+# bytes), half of them cached, 2 epochs of 8 steps
+TIER_ARGS = ["--arch", "recurrentgemma-2b", "--smoke", "--num-records", "16", "--seq-len", "16",
+             "--batch", "2", "--epochs", "2", "--lr", "3e-3", "--prefetch-lookahead", "4"]
+TIER_FLAGS = ["--cache-mb", str(8 * 68 / 2**20), "--eviction-policy", "belady"]
+
+
+@pytest.fixture(scope="module")
+def jax_tier_summary():
+    from repro.launch import train as jax_launch
+
+    return jax_launch.main(TIER_ARGS + TIER_FLAGS + ["--drift-device", "optane"])
+
+
+@pytest.fixture(scope="module")
+def direct_summary():
+    return launch.main(TIER_ARGS + ["--device", "cpu"])
+
+
+@pytest.mark.parametrize("flags", [[], ["--drift-device", "optane"]])
+def test_launcher_tier_matches_jax(jax_tier_summary, direct_summary, flags):
+    """``--cache-mb > 0``: the tier leaves every batch, so every loss, as
+    the direct path has it; the summary carries the JAX launcher's
+    ``cache`` block, field for field, and a ``drift`` report that holds
+    against the closed forms, as the JAX launcher's does."""
+    got = launch.main(TIER_ARGS + TIER_FLAGS + flags + ["--device", "cpu"])
+    want = jax_tier_summary
+    assert JAX_SUMMARY_KEYS | {"cache", "drift"} <= set(got)
+    assert got["steps"] == want["steps"] == 16
+    np.testing.assert_allclose(got["losses"], direct_summary["losses"], rtol=1e-5)
+    assert list(got["cache"]) == list(want["cache"])
+    for key in ("policy", "planner", "budget_bytes"):
+        assert got["cache"][key] == want["cache"][key]
+    assert got["cache"]["demand_hits"] + got["cache"]["demand_misses"] == 2 * 16
+    assert got["cache"]["rejected_inserts"] == got["cache"]["plans_failed"] == 0
+    assert want["drift"]["ok"] and got["drift"]["ok"], got["drift"]
+    assert got["drift"]["context"] == want["drift"]["context"]
+    checks = set(want["drift"]["checks"])
+    assert set(got["drift"]["checks"]) == (checks if flags else checks - {"t_epoch_read_s"})
+    assert "cache" not in direct_summary and "drift" not in direct_summary
 
 
 def test_launcher_cuda_without_a_card_raises():
