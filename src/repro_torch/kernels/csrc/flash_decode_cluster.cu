@@ -1,5 +1,7 @@
 // flash_decode, bf16 split-KV over a thread-block cluster: one-token GQA
-// attention against a per-row KV cache, for head dims 64 and 128.
+// attention against a per-row KV cache, for head dims 64, 128 and 256
+// (recurrentgemma-2b's local-attention ring decode: MQA, 10 heads on one
+// KV head).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_decode.py
 // (flash_decode, pallas_call at :91) for those calls; f32 calls and other
@@ -44,6 +46,13 @@
 // - A block whose slice lies wholly past cur[b] still reaches the cluster
 //   barriers (no early return) and pushes m = -1e30, l = 0, acc = 0, which
 //   merges to weight 0. cur[b] >= T attends the whole cache.
+// - Head dim 256: the same code at D = 256. Shared memory is ~156 KB
+//   (a K and a V stage of 64 x 264 bf16 each twice, 24 pushed f32 rows of
+//   256), so one block an SM, above 48 KB only as dynamic shared memory
+//   (cudaFuncSetAttribute below). The Q operand held for the walk doubles
+//   to 16 k-steps (64 registers) and each warp's quarter of P.V to 64
+//   dims (32 accumulators). At recurrentgemma's decode (B = 4, one KV
+//   head, T = 2,048) the grid is 4 clusters of 8: 32 blocks on 132 SMs.
 // Tried and not kept (PERF.md): f32 products on the CUDA cores,
 // one key a thread for the scores and two dims a thread for P.V, with
 // scores and p through shared memory: 12.26 us at the serving shape on an
@@ -378,7 +387,7 @@ static int launch(const void* q, const void* k, const void* v, const int* cur, v
 }  // namespace repro_torch
 
 // q (B,H,D), k/v caches (B,T,K,D), cur (B,) int32, o (B,H,D), all
-// contiguous bf16 and 16-byte aligned; D 64 or 128; H / K <= 16;
+// contiguous bf16 and 16-byte aligned; D 64, 128 or 256; H / K <= 16;
 // 1 <= splits <= 8 slices of chunk positions (a multiple of 64) covering T.
 // Returns the launch's error, else cudaGetLastError().
 extern "C" int repro_torch_flash_decode_cluster(const void* q, const void* k, const void* v,
@@ -396,5 +405,7 @@ extern "C" int repro_torch_flash_decode_cluster(const void* q, const void* k, co
     return launch<64>(q, k, v, c, o, b, t_len, n_heads, n_kv_heads, splits, chunk, st);
   if (d_head == 128)
     return launch<128>(q, k, v, c, o, b, t_len, n_heads, n_kv_heads, splits, chunk, st);
+  if (d_head == 256)
+    return launch<256>(q, k, v, c, o, b, t_len, n_heads, n_kv_heads, splits, chunk, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -25,7 +25,9 @@ LAUNCHES: Dict[str, int] = {
 ENTRY_LAUNCHES: Dict[str, int] = {}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_HEAD_DIM = 128  # kMaxD in csrc/attention_tile.cuh
+_MAX_HEAD_DIM = 128  # kMaxD in csrc/attention_tile.cuh: K4 and the tile decode kernel
+_CLUSTER_HEAD_DIMS = (64, 128, 256)  # csrc/flash_decode_cluster.cu's instantiations
+_WIDE_ROUTE = "bf16 decode at head dim 256 runs on flash_decode's cluster kernel"
 _WGMMA_HEAD_DIMS = (64, 128)  # csrc/flash_attention_wgmma.cu
 _WGMMA_ROWS = 64              # its query tile: the group must divide it
 _MAX_GROUP = 16      # kMaxGroup in csrc/flash_decode.cu and flash_decode_cluster.cu
@@ -55,7 +57,8 @@ def _on_cpu(name: str, *tensors: torch.Tensor) -> bool:
     return False
 
 
-def _check_cuda(name: str, floats, heads: int, kv_heads: int, d: int) -> int:
+def _check_cuda(name: str, floats, heads: int, kv_heads: int, d: int,
+                max_head_dim: int = _MAX_HEAD_DIM) -> int:
     dtypes = {t.dtype for t in floats}
     if len(dtypes) != 1 or next(iter(dtypes)) not in _DTYPE_CODES:
         raise TypeError(f"{name}: takes one dtype of float32/bfloat16, got {dtypes}")
@@ -66,8 +69,9 @@ def _check_cuda(name: str, floats, heads: int, kv_heads: int, d: int) -> int:
             raise ValueError(f"{name}: inputs must be 16-byte aligned")
     if kv_heads < 1 or heads % kv_heads:
         raise ValueError(f"{name}: {heads} heads do not group over {kv_heads} KV heads")
-    if not (1 <= d <= _MAX_HEAD_DIM and d % 8 == 0):
-        raise ValueError(f"{name}: head dim {d} is not a multiple of 8 in 8..{_MAX_HEAD_DIM}")
+    if not (1 <= d <= max_head_dim and d % 8 == 0):
+        raise ValueError(f"{name}: head dim {d} is not a multiple of 8 in 8..{_MAX_HEAD_DIM} "
+                         f"({_WIDE_ROUTE})")
     return _DTYPE_CODES[next(iter(dtypes))]
 
 
@@ -125,9 +129,10 @@ def flash_attention(q, k, v, causal: bool = True):
 def _decode_kernel(dtype: torch.dtype, d: int) -> str:
     """Which CUDA kernel serves a ``flash_decode`` call: ``"cluster"``
     (split-KV over a thread-block cluster, ``flash_decode_cluster.cu``)
-    for bf16 with head dim 64 or 128; ``"tile"`` (``flash_decode.cu``)
-    for everything else, f32 included."""
-    return "cluster" if dtype == torch.bfloat16 and d in (64, 128) else "tile"
+    for bf16 with head dim 64, 128 or 256 (recurrentgemma's); ``"tile"``
+    (``flash_decode.cu``, head dims up to 128) for everything else, f32
+    included."""
+    return "cluster" if dtype == torch.bfloat16 and d in _CLUSTER_HEAD_DIMS else "tile"
 
 
 def _decode_splits(b: int, kv_heads: int, t: int, sms: int) -> tuple:
@@ -148,7 +153,7 @@ def flash_decode(q, k_cache, v_cache, cur_index):
     """q: (B,H,D); caches: (B,T,K,D); cur_index: (B,) int32 >= 0.
     Attends to cache positions <= cur_index[b]; cur_index[b] >= T attends
     the whole cache.  Returns (B,H,D).  On the card, ``_decode_kernel``
-    picks the kernel from dtype and D."""
+    picks the kernel from dtype and D: head dim 256 only in bf16."""
     if q.dim() != 3 or k_cache.dim() != 4 or k_cache.shape != v_cache.shape:
         raise ValueError(
             f"flash_decode: shapes {q.shape}, {k_cache.shape}, {v_cache.shape}"
@@ -162,7 +167,9 @@ def flash_decode(q, k_cache, v_cache, cur_index):
         )
     if _on_cpu("flash_decode", q, k_cache, v_cache, cur_index):
         return ref.flash_decode(q, k_cache, v_cache, cur_index)
-    code = _check_cuda("flash_decode", (q, k_cache, v_cache), h, kh, d)
+    route = _decode_kernel(q.dtype, d)
+    code = _check_cuda("flash_decode", (q, k_cache, v_cache), h, kh, d,
+                       max(_CLUSTER_HEAD_DIMS) if route == "cluster" else _MAX_HEAD_DIM)
     if cur_index.dtype != torch.int32 or not cur_index.is_contiguous():
         raise TypeError("flash_decode: cur_index must be contiguous int32")
     if h // kh > _MAX_GROUP:
@@ -176,7 +183,7 @@ def flash_decode(q, k_cache, v_cache, cur_index):
             out.data_ptr(), b, t, h, kh, d)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if _decode_kernel(q.dtype, d) == "cluster":
+        if route == "cluster":
             if b > _MAX_GRID_Y or kh > _MAX_GRID_Y:
                 raise ValueError(f"flash_decode: batch {b} or {kh} KV heads exceed {_MAX_GRID_Y}")
             sms = torch.cuda.get_device_properties(q.device).multi_processor_count

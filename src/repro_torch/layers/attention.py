@@ -1,14 +1,16 @@
 """Grouped-query attention: projections, full causal prefill attention,
-single-token decode attention, and the training path's attention.
+single-token decode attention (a whole cache or a sliding-window ring),
+and the training path's attention.
 
 Shapes follow the JAX package: q (B,S,H,D); k/v (B,T,K,D); H = K·G.
-``full_attention`` and ``decode_attention`` dispatch to the port's
-kernels (:mod:`repro_torch.kernels.ops`): the CUDA kernels for tensors on
-the card, their plain versions for tensors on the CPU.  They have no
-backward.  Training differentiates ``causal_attention`` and
-``local_attention``, plain torch products as the JAX package's training
-path computes them in jnp outside any Pallas kernel, on the masked
-``sdpa`` of :mod:`repro_torch.layers.sdpa`.
+``full_attention``, ``decode_attention`` and ``decode_local_attention``
+dispatch to the port's kernels (:mod:`repro_torch.kernels.ops`): the
+CUDA kernels for tensors on the card, their plain versions for tensors on
+the CPU.  They have no backward.  Training differentiates
+``causal_attention``, ``local_attention`` and ``blocked_attention``,
+plain torch products as the JAX package's training path computes them in
+jnp outside any Pallas kernel, on the masked ``sdpa`` of
+:mod:`repro_torch.layers.sdpa`.
 """
 from __future__ import annotations
 
@@ -60,6 +62,19 @@ def decode_attention(q, k_cache, v_cache, cur_index):
     return ops.flash_decode(q[:, 0], k_cache, v_cache, cur_index)[:, None]
 
 
+def decode_local_attention(q, k_ring, v_ring, cur_index, window: int):
+    """Ring-buffer sliding-window decode: slot = position % T, the ring's
+    T = min(window, capacity or prompt) <= window slots.  JAX masks slot
+    s by ``pos(s) >= 0 and cur - pos(s) < window``, with ``pos(s) = cur -
+    (cur - s) % T``; since ``cur - pos(s) < T <= window`` that keeps
+    exactly the slots ``<= min(cur, T - 1)``, which is ``flash_decode``'s
+    contract (``cur >= T`` attends the whole ring)."""
+    if k_ring.shape[1] > window:
+        raise ValueError(f"decode_local_attention: a ring of {k_ring.shape[1]} slots "
+                         f"exceeds the window {window}")
+    return decode_attention(q, k_ring, v_ring, cur_index)
+
+
 def causal_mask(s: int, t=None, offset: int = 0, device=None) -> torch.Tensor:
     """(1,1,S,T) bool, True where key position <= query position."""
     t = t if t is not None else s
@@ -72,6 +87,49 @@ def causal_attention(q, k, v):
     """Causal attention through the masked ``sdpa`` (differentiable; the
     training path of the ``attn`` kind)."""
     return sdpa(q, k, v, mask=causal_mask(q.shape[1], k.shape[1], device=q.device))
+
+
+def blocked_applies(s: int, block: int) -> bool:
+    """Whether JAX's ``blocked_attention`` takes its blocked branch for a
+    sequence of ``s``; else it returns ``full_attention``'s result."""
+    return s % block == 0 and s > block
+
+
+def blocked_attention(q, k, v, block: int = 1024):
+    """Flash-style causal attention as the JAX package computes it: per
+    query block, an online softmax over key blocks (scores in the input
+    dtype, then f32 times 1/sqrt(D); p cast to q's dtype before P·V; the
+    f32 accumulator rescaled at each block).  Key blocks past the query
+    block's diagonal are skipped: JAX visits them, but there every key is
+    masked, so they add exactly 0 and rescale by exactly 1.  Where
+    ``blocked_applies`` is false, the masked ``causal_attention``."""
+    b, s, h, d = q.shape
+    if not blocked_applies(s, block):
+        return causal_attention(q, k, v)
+    k, v = _expand_kv(q, k, v)
+    scale = 1.0 / math.sqrt(d)
+    pos = torch.arange(block, device=q.device)
+    outs = []
+    for i in range(s // block):
+        qi = q[:, i * block:(i + 1) * block]
+        m = torch.full((b, h, block), -math.inf, dtype=torch.float32, device=q.device)
+        l = torch.zeros((b, h, block), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((b, h, block, d), dtype=torch.float32, device=q.device)
+        for j in range(i + 1):
+            kj, vj = k[:, j * block:(j + 1) * block], v[:, j * block:(j + 1) * block]
+            sc = torch.einsum("bshd,bthd->bhst", qi, kj).float() * scale
+            if j == i:  # the diagonal block: key <= query
+                sc = torch.where((pos[None, :] <= pos[:, None])[None, None], sc, NEG_INF)
+            m_new = torch.maximum(m, sc.amax(-1))
+            p = torch.exp(sc - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhst,bthd->bhsd", p.to(q.dtype), vj).float()
+            m = m_new
+        o = (acc / l.clamp(min=1e-30)[..., None]).to(q.dtype)
+        outs.append(o.transpose(1, 2))  # (b, block, h, d)
+    return torch.cat(outs, dim=1)
 
 
 def local_attention(q, k, v, window: int):

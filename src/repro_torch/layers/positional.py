@@ -36,9 +36,11 @@ def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
 
 def default_positions(batch: int, seq: int, offset=0, device=None) -> torch.Tensor:
     """(batch, seq) int32 positions ``offset + arange(seq)``; ``offset``
-    is an int or a (batch,) tensor of per-row offsets (continuous-batching
-    decode)."""
+    is an int, a 0-d tensor (scalar-position decode: read on the device,
+    no wait for it) or a (batch,) tensor of per-row offsets
+    (continuous-batching decode)."""
     base = torch.arange(seq, dtype=torch.int32, device=device)[None, :]
-    if isinstance(offset, torch.Tensor) and offset.dim():
-        return offset.to(torch.int32)[:, None] + base
+    if isinstance(offset, torch.Tensor):
+        off = offset.to(torch.int32)
+        return (off[:, None] if off.dim() else off) + base.expand(batch, seq)
     return (base + int(offset)).expand(batch, seq)

@@ -8,8 +8,9 @@
 The full-sequence path of the JAX layer (``repro.layers.rglru``), with the
 recurrence on the port's scan kernel (``ops.RGLRUScan``: the CUDA kernel
 forward and in reverse for the gradient on the card, the plain loops on
-the CPU) where JAX runs ``jax.lax.associative_scan``.  The single-token
-decode step (``apply_rglru_step``) is not ported yet.
+the CPU) where JAX runs ``jax.lax.associative_scan``; and the
+single-token decode step (``apply_rglru_step``), plain torch as JAX
+computes it in jnp: one step needs no scan.
 """
 from __future__ import annotations
 
@@ -91,3 +92,16 @@ def apply_rglru(params, x: torch.Tensor, dtype, h0=None, conv_hist=None):
     h = ops.RGLRUScan.apply(a, b)
     y = (h.to(dtype) * g) @ params["wo"].to(dtype)
     return y, (h[:, -1], hist)
+
+
+def apply_rglru_step(params, x: torch.Tensor, state, dtype):
+    """Single decode step.  x: (B,1,d); state = (h_prev (B,W) f32,
+    conv_hist (B,CW-1,W)).  Returns (y (B,1,d), (h, conv_hist))."""
+    h_prev, conv_hist = state
+    u = x @ params["wx"].to(dtype)
+    g = activation_fn("gelu")(x @ params["wg"].to(dtype))
+    u, hist = _causal_conv(u, params["conv_w"].to(dtype), params["conv_b"].to(dtype), conv_hist)
+    a, b = _gates(params, u)
+    h = a[:, 0] * h_prev.float() + b[:, 0]  # the carried state stays f32
+    y = (h.to(dtype) * g[:, 0]) @ params["wo"].to(dtype)
+    return y[:, None], (h, hist)

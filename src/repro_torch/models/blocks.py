@@ -1,13 +1,16 @@
 """Block-level init/apply dispatch.
 
-A *block* is one residual unit of a stage pattern.  The port runs
-    attn        in all three modes: train, prefill (emits a decode cache)
-                and decode (one token per row at per-row positions, the
-                cache updated in place)
-    local_attn  in train mode (sliding-window attention)
-    rglru       in train mode (the RG-LRU recurrence on the scan kernel)
-Other kinds, scalar-position decode, and prefill or decode of the
-recurrent and local kinds (their ring and state caches) are refused.
+A *block* is one residual unit of a stage pattern.  The port runs the
+``attn``, ``local_attn`` and ``rglru`` kinds in the JAX package's three
+modes:
+    train    full sequence, no cache
+    prefill  full sequence, emits a decode cache
+    decode   one token, updates its cache in place and returns it
+Decode (``M.decode_step``) takes one scalar position for the batch, or,
+for ``attn`` blocks, one position per row (continuous batching, the JAX
+package's ``M.decode_step_slots``); both write and attend through one
+path.  Per-row positions with a ``local_attn`` block are refused: the JAX package cannot run them either (its ring write is a
+``dynamic_update_slice`` at a scalar slot).  Other kinds are refused.
 """
 from __future__ import annotations
 
@@ -22,24 +25,14 @@ from repro_torch.layers.mlp import apply_ffn, init_ffn
 from repro_torch.layers.positional import apply_rope
 from repro_torch.models.config import ModelConfig
 
-# block kind -> the modes the port runs it in
-PORTED_MODES = {
-    "attn": ("train", "prefill", "decode"),
-    "local_attn": ("train",),
-    "rglru": ("train",),
-}
+PORTED_KINDS = ("attn", "local_attn", "rglru")
+ATTN_IMPLS = ("full", "blocked")
 
 
-def _check_kind(kind: str, mode: Optional[str] = None) -> None:
-    if kind not in PORTED_MODES:
+def _check_kind(kind: str) -> None:
+    if kind not in PORTED_KINDS:
         raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet; repro_torch runs "
-            f"{tuple(PORTED_MODES)} blocks"
-        )
-    if mode is not None and mode not in PORTED_MODES[kind]:
-        raise NotImplementedError(
-            f"{mode!r} mode of block kind {kind!r} is not ported yet; it runs "
-            f"in {PORTED_MODES[kind]}"
+            f"block kind {kind!r} is not ported yet; repro_torch runs {PORTED_KINDS} blocks"
         )
 
 
@@ -59,13 +52,37 @@ def init_block(generator, kind: str, cfg: ModelConfig, device):
 
 
 def init_cache(kind: str, cfg: ModelConfig, batch: int, capacity: int, device):
-    """Zeroed per-block decode cache in the compute dtype."""
-    _check_kind(kind, "decode")
+    """Zeroed per-block decode cache: K/V (B, C, K, D) for ``attn``, a ring
+    of ``min(window, C)`` slots for ``local_attn``, both in the compute
+    dtype; for ``rglru`` the state ``h`` (B, W) in f32 and the conv
+    history (B, CW-1, W) in the compute dtype."""
+    _check_kind(kind)
+    dt = cfg.compute_dtype
+    if kind == "rglru":
+        w = cfg.rnn_width or cfg.d_model
+        return {
+            "h": torch.zeros((batch, w), dtype=torch.float32, device=device),
+            "conv": torch.zeros((batch, cfg.conv_width - 1, w), dtype=dt, device=device),
+        }
+    if kind == "local_attn":
+        capacity = min(cfg.local_window, capacity)
     shape = (batch, capacity, cfg.num_kv_heads, cfg.kq_dim)
-    return {
-        "k": torch.zeros(shape, dtype=cfg.compute_dtype, device=device),
-        "v": torch.zeros(shape, dtype=cfg.compute_dtype, device=device),
-    }
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def _causal(q, k, v, cfg: ModelConfig, mode: str):
+    """The ``attn`` kind's causal attention in train and prefill: the
+    blocked online softmax where ``attn_impl="blocked"`` takes its blocked
+    branch; else the masked ``sdpa`` in training and the attention kernel
+    (K4) in prefill, which has no backward."""
+    if cfg.attn_impl not in ATTN_IMPLS:
+        raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {cfg.attn_impl!r}")
+    if cfg.attn_impl == "blocked" and attn.blocked_applies(q.shape[1], cfg.attn_block):
+        return attn.blocked_attention(q, k, v, cfg.attn_block)
+    if mode == "train":
+        return attn.causal_attention(q, k, v)
+    return attn.full_attention(q, k, v, causal=True)
 
 
 def _self_attention(p, x, cfg: ModelConfig, kind: str, mode: str, cache, pos, aux):
@@ -78,29 +95,57 @@ def _self_attention(p, x, cfg: ModelConfig, kind: str, mode: str, cache, pos, au
     if mode == "train":
         if kind == "local_attn":
             o = attn.local_attention(q, k, v, cfg.local_window)
-        elif cfg.attn_impl != "full":
-            raise NotImplementedError(f"attn_impl {cfg.attn_impl!r} is not ported yet")
         else:
-            o = attn.causal_attention(q, k, v)
+            o = _causal(q, k, v, cfg, mode)
         return attn.out_proj(p["attn"], o, dt), None
     if mode == "prefill":
-        if cfg.attn_impl != "full":
-            raise NotImplementedError(f"attn_impl {cfg.attn_impl!r} is not ported yet")
-        o = attn.full_attention(q, k, v, causal=True)
-        return attn.out_proj(p["attn"], o, dt), {"k": k, "v": v}
-    if pos is None or pos.dim() != 1:
-        raise NotImplementedError("decode takes per-row positions pos (B,)")
-    # per-slot decode: row i writes its token at pos[i], clamped to the
-    # last slot as jax.lax.dynamic_update_slice clamps (idle slots keep
-    # advancing past the arena's end), then attends positions <= pos[i].
-    # The write updates the cache in place.
+        if kind == "local_attn":
+            # the ring keeps the last w positions at slot = pos % w
+            s = k.shape[1]
+            w = min(cfg.local_window, s)
+            o = attn.local_attention(q, k, v, cfg.local_window)
+            roll = (s - w) % w
+            new = {"k": torch.roll(k[:, s - w:], roll, dims=1),
+                   "v": torch.roll(v[:, s - w:], roll, dims=1)}
+        else:
+            o = _causal(q, k, v, cfg, mode)
+            new = {"k": k, "v": v}
+        return attn.out_proj(p["attn"], o, dt), new
+    # decode: row i writes its token at cur[i] (a scalar pos is every row
+    # at one position) and attends positions <= cur[i]; the write updates
+    # the cache in place
+    local = kind == "local_attn"
+    if local and pos.dim() == 1:
+        raise ValueError(
+            "local_attn decode takes one scalar position for the batch: per-row "
+            "positions would write each row's ring at its own slot, which the JAX "
+            "package cannot run either (dynamic_update_slice at a scalar slot)")
     ck, cv = cache["k"], cache["v"]
-    rows = torch.arange(x.shape[0], device=x.device)
-    idx = pos.clamp(max=ck.shape[1] - 1).long()
+    b, t = x.shape[0], ck.shape[1]
+    cur = pos.to(torch.int32).expand(b).contiguous()
+    # the ring writes at pos % t; the attn cache clamps to its last slot as
+    # jax.lax.dynamic_update_slice clamps (idle serving slots keep advancing
+    # past the arena's end)
+    idx = (cur % t if local else cur.clamp(max=t - 1)).long()
+    rows = torch.arange(b, device=x.device)
     ck[rows, idx] = k[:, 0]
     cv[rows, idx] = v[:, 0]
-    o = attn.decode_attention(q, ck, cv, pos.to(torch.int32))
+    if local:
+        o = attn.decode_local_attention(q, ck, cv, cur, cfg.local_window)
+    else:
+        o = attn.decode_attention(q, ck, cv, cur)
     return attn.out_proj(p["attn"], o, dt), cache
+
+
+def _rglru(p, x, cfg: ModelConfig, mode: str, cache):
+    dt = cfg.compute_dtype
+    if mode == "decode":
+        o, (hs, hist) = rglru_lib.apply_rglru_step(p["rglru"], x, (cache["h"], cache["conv"]), dt)
+        cache["h"].copy_(hs)  # in place, as the attention caches
+        cache["conv"].copy_(hist)
+        return o, cache
+    o, (hs, hist) = rglru_lib.apply_rglru(p["rglru"], x, dt)
+    return o, ({"h": hs, "conv": hist.to(dt)} if mode == "prefill" else None)
 
 
 def apply_block(
@@ -116,11 +161,12 @@ def apply_block(
     """Returns ``(x, cache)``; the cache is None in train mode.  (The JAX
     function also returns an auxiliary loss, nonzero only for ``moe``
     blocks, which the port does not run yet.)"""
-    _check_kind(kind, mode)
+    _check_kind(kind)
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"mode must be train|prefill|decode, got {mode!r}")
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     if kind == "rglru":
-        o, _ = rglru_lib.apply_rglru(p["rglru"], h, cfg.compute_dtype)
-        new_cache = None
+        o, new_cache = _rglru(p, h, cfg, mode, cache)
     else:
         o, new_cache = _self_attention(p, h, cfg, kind, mode, cache, pos, aux or {})
     x = x + o

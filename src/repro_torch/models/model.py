@@ -1,21 +1,28 @@
-"""Model assembly: init, forward, the training loss (``loss_fn``) and the
-serving entry points (``prefill_at``, ``decode_step_slots``,
-``write_prefill_slot``, ``init_decode_cache``).
+"""Model assembly: init, forward, the training loss (``loss_fn``), and
+prefill and decode: one position for the batch (``prefill``,
+``decode_step``, ``extend_cache``) and the serving entry points, one
+position per row (``prefill_at``, ``write_prefill_slot``, and
+``decode_step`` on a (B,) ``pos``: the JAX package's
+``decode_step_slots``); ``init_decode_cache`` serves both.
 
 Parameters mirror the JAX tree: ``{"embed", "stages", "final_norm",
 "lm_head"}`` with every stage a tuple (one entry per pattern position) of
 dicts whose leaves are stacked on a leading ``repeats`` axis.  Decode
-caches likewise: ``{"pos": (B,) int32, "stages": [tuple of {"k", "v"}
-leaves (L, B, C, K, D)]}``.  A Python loop over the stacked layers takes
-the place of ``lax.scan``.
+caches likewise: ``{"pos": () or (B,) int32, "stages": [tuple of per-kind
+leaves stacked (L, ...)]}``, the kinds' leaves as ``blocks.init_cache``
+makes them (``attn`` K/V, ``local_attn`` rings, ``rglru`` ``h`` and
+``conv``).  A Python loop over the stacked layers takes the place of
+``lax.scan``.
 
 Training rematerialises one pattern period at a time, as the JAX
-package's ``_remat_wrap`` does, with ``torch.utils.checkpoint``: the
-period's activations are dropped after the forward and recomputed in the
-backward.  JAX's ``remat="dots"`` keeps the matrix products' outputs
-(``checkpoint_dots``) and recomputes only the rest; torch has no such
-policy in ``checkpoint``, so "dots" recomputes the whole period, as
-"full" does (the same values, more recomputation).
+package's ``_remat_wrap`` does, with ``torch.utils.checkpoint``.
+``remat="full"`` drops the period's activations after the forward and
+recomputes the whole period in the backward.  ``remat="dots"`` (the
+default) is JAX's ``checkpoint_dots``: a selective-checkpoint policy keeps
+the outputs of every matrix product (``aten.mm``, ``bmm``, ``addmm``,
+``baddbmm``: every ``@`` and ``einsum`` of a period, batched ones
+included, as ``checkpoint_dots`` keeps every ``dot_general``) and the
+backward recomputes only the rest.
 """
 from __future__ import annotations
 
@@ -23,7 +30,11 @@ import functools
 from typing import Any, Dict
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.layers.common import dense_init, rms_norm
 from repro_torch.layers.positional import default_positions, rope_angles
@@ -92,14 +103,25 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device) -> Dict[st
 # ------------------------------------------------------------ stage loop
 
 
+_DOT_OPS = frozenset((torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                      torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default))
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """``checkpoint_dots``: keep the matrix products' outputs."""
+    return CheckpointPolicy.MUST_SAVE if op in _DOT_OPS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def _remat_wrap(fn, cfg: ModelConfig):
     if cfg.remat == "none":
         return fn
     if cfg.remat not in ("dots", "full"):
         raise ValueError(f"remat must be none|dots|full, got {cfg.remat!r}")
-    # "dots" as "full": see the module docstring.  The forward draws no
-    # random numbers, so no RNG state needs replaying.
-    return functools.partial(checkpoint, fn, use_reentrant=False, preserve_rng_state=False)
+    # the forward draws no random numbers, so no RNG state needs replaying
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _save_dots)
+    return functools.partial(checkpoint, fn, use_reentrant=False, preserve_rng_state=False, **kw)
 
 
 def _run_stage_train(stage_params, pattern, repeats: int, x, cfg: ModelConfig, aux):
@@ -137,12 +159,13 @@ def forward_hidden(cfg: ModelConfig, params, tokens: torch.Tensor, mode: str,
                    caches=None, pos=None):
     """Returns ``(hidden, stage caches, aux loss)``.  ``mode='train'``: no
     caches; each pattern period rematerialised per ``cfg.remat``.
-    ``mode='prefill'``: cache leaves stacked (L, B, S, K, D).
-    ``mode='decode'``: tokens (B, 1) at per-row positions ``pos`` (B,);
-    the caches' leaves are updated in place and returned.  The aux loss is
-    zero: only ``moe`` blocks add to it, and the port does not run them."""
+    ``mode='prefill'``: every cache leaf stacked (L, B, ...).
+    ``mode='decode'``: tokens (B, 1) at position ``pos``, one for the
+    batch (a 0-d tensor) or one per row (B,); the caches' leaves are
+    updated in place and returned.  The aux loss is zero: only ``moe``
+    blocks add to it, and the port does not run them."""
     if mode not in ("train", "prefill", "decode"):
-        raise NotImplementedError(f"mode {mode!r} is not ported yet")
+        raise ValueError(f"mode must be train|prefill|decode, got {mode!r}")
     b, s = tokens.shape
     x = _embed(cfg, params, tokens)
     offset = pos if mode == "decode" else 0
@@ -168,7 +191,7 @@ def forward_hidden(cfg: ModelConfig, params, tokens: torch.Tensor, mode: str,
         if mode == "prefill":
             new_caches.append(tuple(
                 {key: torch.stack([layer[pi][key] for layer in per_layer])
-                 for key in ("k", "v")}
+                 for key in per_layer[0][pi]}
                 for pi in range(len(pattern))
             ))
         else:
@@ -220,6 +243,46 @@ def loss_fn(cfg: ModelConfig, params, batch):
 # --------------------------------------------------------------- serving
 
 
+def prefill(cfg: ModelConfig, params, tokens: torch.Tensor):
+    """Prefill a whole batch of ``S`` tokens: logits at the last token and
+    a decode cache at the scalar position ``S``.  ``local_attn`` rings hold
+    ``min(window, S)`` slots, as in the JAX package: after a prompt shorter
+    than the window, decode wraps inside a ring of the prompt's length."""
+    hidden, caches, _ = forward_hidden(cfg, params, tokens, "prefill")
+    pos = torch.tensor(tokens.shape[1], dtype=torch.int32, device=tokens.device)
+    return {"pos": pos, "stages": caches}, _logits(cfg, params, hidden[:, -1])
+
+
+def decode_step(cfg: ModelConfig, params, cache, tokens: torch.Tensor):
+    """tokens: (B, 1), appended at ``cache['pos']``: a scalar for the
+    batch (a 0-d tensor), or one position per row (B,), where row ``i``
+    appends at ``pos[i]`` (clamped to the arena's last slot) and attends
+    ``<= pos[i]``: the JAX package's ``decode_step_slots``, the
+    continuous-batching primitive.  Unlike the JAX functions, the cache's
+    leaves are updated in place; the returned cache holds the same leaves
+    and ``pos + 1``."""
+    pos = cache["pos"]
+    hidden, stages, _ = forward_hidden(cfg, params, tokens, "decode", caches=cache, pos=pos)
+    return {"pos": pos + 1, "stages": stages}, _logits(cfg, params, hidden[:, -1])
+
+
+def extend_cache(cfg: ModelConfig, cache, extra: int):
+    """Pad the ``attn`` K/V capacity of a prefill cache by ``extra``
+    positions (new leaves); local-attention rings and recurrent state
+    leaves are untouched.  Stacked leaves are (L, B, T, K, D)."""
+    stages = []
+    for si, (pattern, _) in enumerate(cfg.stages):
+        per_pos = []
+        for pi, kind in enumerate(pattern):
+            c = cache["stages"][si][pi]
+            if kind == "attn":
+                c = {key: torch.nn.functional.pad(x, (0, 0, 0, 0, 0, extra))
+                     for key, x in c.items()}
+            per_pos.append(c)
+        stages.append(tuple(per_pos))
+    return {"pos": cache["pos"], "stages": stages}
+
+
 def prefill_at(cfg: ModelConfig, params, tokens: torch.Tensor, lengths: torch.Tensor):
     """Right-padded prefill: logits at each row's *last real* token.
 
@@ -235,20 +298,6 @@ def prefill_at(cfg: ModelConfig, params, tokens: torch.Tensor, lengths: torch.Te
     return {"pos": lengths, "stages": caches}, _logits(cfg, params, last)
 
 
-def decode_step_slots(cfg: ModelConfig, params, cache, tokens: torch.Tensor):
-    """Per-slot decode: ``cache['pos']`` is (B,), one position per row.
-
-    Row ``i`` appends at ``pos[i]`` (clamped to the arena's last slot) and
-    attends ``<= pos[i]`` — the continuous-batching primitive.  Unlike the
-    JAX function, the arena's KV leaves are updated in place; the returned
-    cache holds the same leaves and ``pos + 1``.
-    """
-    pos = cache["pos"]
-    hidden, stages, _ = forward_hidden(cfg, params, tokens, "decode", caches=cache, pos=pos)
-    logits = _logits(cfg, params, hidden[:, -1])
-    return {"pos": pos + 1, "stages": stages}, logits
-
-
 def write_prefill_slot(cfg: ModelConfig, arena, slot: int, pre):
     """Copy a one-row prefill cache into row ``slot`` of a decode arena,
     in place.
@@ -258,7 +307,9 @@ def write_prefill_slot(cfg: ModelConfig, arena, slot: int, pre):
     ``pos[slot]`` set to the prefill's.
     """
     for si, (pattern, _) in enumerate(cfg.stages):
-        for pi, _kind in enumerate(pattern):
+        for pi, kind in enumerate(pattern):
+            if kind != "attn":  # the engine serves attention blocks only
+                continue
             a, p = arena["stages"][si][pi], pre["stages"][si][pi]
             for key in ("k", "v"):
                 src = p[key][:, 0]

@@ -10,8 +10,9 @@ the ``serve/arena_alloc`` trace instant marks it).  Each step:
    *every* slot is free.  Admission prefills the request right-padded to
    ``prompt_capacity`` (batch 1, fixed shape) and copies its KV into the
    slot with :func:`~repro_torch.models.model.write_prefill_slot`.
-2. **Decode** — one :func:`~repro_torch.models.model.decode_step_slots`
-   over the whole arena; every row appends at its own position.
+2. **Decode** — one :func:`~repro_torch.models.model.decode_step` on
+   per-row positions over the whole arena; every row appends at its own
+   position.
    Finished rows (budget reached / EOS) free their slots immediately.
 
 Requests may carry ``feature_ids``; admission serves them through the
@@ -165,7 +166,7 @@ class ServeEngine:
 
     def _decode(self) -> torch.Tensor:
         """One decode step over the whole arena; returns the logits."""
-        self.arena, logits = model_lib.decode_step_slots(
+        self.arena, logits = model_lib.decode_step(
             self.cfg, self.params, self.arena, self._tensor(self._cur)
         )
         return logits

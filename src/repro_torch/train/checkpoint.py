@@ -19,6 +19,7 @@ from __future__ import annotations
 import hashlib
 import json
 import shutil
+import threading
 import time
 from pathlib import Path
 from typing import Any, Dict, Optional, Tuple
@@ -29,8 +30,10 @@ import torch
 from repro_torch.utils.tree import flatten_with_path, path_str, tree_unflatten
 
 
-def _to_numpy(t: torch.Tensor) -> np.ndarray:
-    t = t.detach().cpu()
+def _to_numpy(t: torch.Tensor, copy: bool = False) -> np.ndarray:
+    """The leaf's bytes on the host: a view of a CPU tensor's storage
+    unless ``copy`` (a device tensor is copied either way)."""
+    t = t.detach().to("cpu", copy=copy)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16)
     return t.numpy()
@@ -44,8 +47,8 @@ def _from_numpy(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
     return t.to(like.device)
 
 
-def _flatten(state) -> Dict[str, np.ndarray]:
-    return {path_str(path): _to_numpy(leaf) for path, leaf in flatten_with_path(state)}
+def _flatten(state, copy: bool = False) -> Dict[str, np.ndarray]:
+    return {path_str(path): _to_numpy(leaf, copy) for path, leaf in flatten_with_path(state)}
 
 
 def _digest(flat: Dict[str, np.ndarray]) -> str:
@@ -77,10 +80,34 @@ class CheckpointManager:
         self.dir = Path(directory)
         self.dir.mkdir(parents=True, exist_ok=True)
         self.keep = keep
+        self._lock = threading.Lock()
+        self._pending: Optional[threading.Thread] = None
 
     # -------------------------------------------------------------- save
     def save(self, step: int, state, extra: Optional[Dict[str, Any]] = None):
-        flat = _flatten(state)
+        with self._lock:
+            self._write(step, _flatten(state), extra or {})
+
+    def save_async(self, step: int, state, extra: Optional[Dict[str, Any]] = None):
+        """Snapshot the state to host memory on the caller's thread (so the
+        caller may update it in place right after), write it on another;
+        a previous pending write is joined first.  The port's train step
+        updates the state in place, so CPU leaves are copied too."""
+        flat = _flatten(state, copy=True)
+        t = threading.Thread(target=self._write, args=(step, flat, extra or {}), daemon=True)
+        with self._lock:
+            if self._pending is not None:
+                self._pending.join()
+            self._pending = t
+        t.start()
+
+    def wait(self):
+        with self._lock:
+            if self._pending is not None:
+                self._pending.join()
+                self._pending = None
+
+    def _write(self, step: int, flat: Dict[str, np.ndarray], extra: Dict[str, Any]):
         final = self.dir / f"step_{step:010d}"
         tmp = self.dir / f".tmp_step_{step:010d}_{time.time_ns()}"
         tmp.mkdir(parents=True)
@@ -88,7 +115,7 @@ class CheckpointManager:
             np.savez(tmp / "arrays.npz", **flat)
             manifest = {
                 "step": step,
-                "extra": extra or {},
+                "extra": extra,
                 "num_leaves": len(flat),
                 "digest": _digest(flat),
                 "time": time.time(),

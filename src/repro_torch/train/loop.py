@@ -18,6 +18,7 @@ the JAX loop.
 from __future__ import annotations
 
 import dataclasses
+import json
 import time
 from typing import Any, Callable, Dict, Optional
 
@@ -50,6 +51,8 @@ class TrainLoopConfig:
     max_steps: int = 0  # 0 = no cap
     ckpt_every: int = 50
     ckpt_dir: str = ""
+    keep_ckpts: int = 2
+    log_path: str = ""  # metrics JSONL: one record a step, appended
     fail_at_step: int = -1  # simulate preemption (tests)
     seed: int = 0
 
@@ -128,11 +131,12 @@ class Trainer:
         self.global_step = 0
         self.start_epoch = 0
         self.start_step_in_epoch = 0
-        # the newest two checkpoints are kept, the JAX loop's default
-        self.ckpt = CheckpointManager(loop_cfg.ckpt_dir, keep=2) if loop_cfg.ckpt_dir else None
+        self.ckpt = (CheckpointManager(loop_cfg.ckpt_dir, keep=loop_cfg.keep_ckpts)
+                     if loop_cfg.ckpt_dir else None)
         self.epoch_hook = epoch_hook
         self.history: list = []
         self.step_seconds: list = []  # host clock per step, ending in _log's sync
+        self._log_f = open(loop_cfg.log_path, "a") if loop_cfg.log_path else None
 
     # ------------------------------------------------------------ resume
     def try_resume(self) -> bool:
@@ -184,6 +188,10 @@ class Trainer:
             if self.ckpt:
                 self._save(epoch, step_in_epoch)
             raise
+        finally:
+            if self._log_f:
+                self._log_f.close()
+                self._log_f = None
         return self.summary()
 
     def _save(self, epoch: int, step_in_epoch: int = 0):
@@ -194,11 +202,14 @@ class Trainer:
         )
 
     def _log(self, epoch: int, metrics: Dict):
-        self.history.append({
+        rec = {
             "step": self.global_step,
             "epoch": epoch,
             **{k: float(v) for k, v in metrics.items()},
-        })
+        }
+        self.history.append(rec)
+        if self._log_f:
+            self._log_f.write(json.dumps(rec) + "\n")
 
     def summary(self) -> Dict[str, Any]:
         s = self.pipeline.stats

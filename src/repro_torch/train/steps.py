@@ -1,5 +1,5 @@
-"""The train step (with optional microbatching), the port of
-``repro.train.steps``.
+"""The step functions, the port of ``repro.train.steps``: train (with
+optional microbatching), prefill and decode.
 
 ``make_train_step(cfg, optimizer)`` returns ``train_step(state, batch)``,
 which takes the gradient of ``loss_fn`` by autograd and applies AdamW.
@@ -73,3 +73,20 @@ def make_train_step(cfg: ModelConfig, optimizer: AdamW, microbatches: int = 1,
         return state, {"loss": loss, **metrics, **opt_metrics}
 
     return train_step
+
+
+def make_prefill_step(cfg: ModelConfig):
+    """``prefill_step(params, tokens) -> (cache, logits)``: ``M.prefill``."""
+    def prefill_step(params, tokens):
+        return M.prefill(cfg, params, tokens)
+
+    return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig):
+    """``decode_step(params, cache, tokens) -> (cache, logits)``:
+    ``M.decode_step``, which updates the cache's leaves in place."""
+    def decode_step(params, cache, tokens):
+        return M.decode_step(cfg, params, cache, tokens)
+
+    return decode_step

@@ -10,8 +10,9 @@ Tolerances for attention are those of ``tests/test_kernels.py``: 2e-5
 in f32, 2e-2 in bf16.  bf16 attention with head dim 64 or 128 and a group
 dividing 64 runs the tensor-core kernel (``flash_attention_wgmma.cu``),
 the rest the CUDA-core one (``flash_attention.cu``); bf16 decode with head
-dim 64 or 128 runs the split-KV cluster kernel (``flash_decode_cluster.cu``),
-f32 decode the tile kernel (``flash_decode.cu``).  ``csr_dot`` is bit-exact against ``ref.csr_dot``,
+dim 64, 128 or 256 runs the split-KV cluster kernel
+(``flash_decode_cluster.cu``), f32 decode the tile kernel
+(``flash_decode.cu``, head dims up to 128).  ``csr_dot`` is bit-exact against ``ref.csr_dot``,
 which sums in the kernel's order; both gathers copy bytes and are
 bit-exact against ``ref.batch_gather``, ``batch_gather`` on both of its
 routes (host ids in the launch's parameters, or ids loaded on the card).  The scan (``rglru_scan`` and its
@@ -118,6 +119,36 @@ def test_flash_decode_sweep_on_card(cuda, t, group, d, dt):
     entry = {torch.bfloat16: "repro_torch_flash_decode_cluster",
              torch.float32: "repro_torch_flash_decode"}[dt]
     assert ops.LAUNCHES["flash_decode"] == 1 and ops.ENTRY_LAUNCHES == {entry: 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("group,kh", [(10, 1), (8, 2)])
+@pytest.mark.parametrize("t", [1, 100, 2048, 2049])
+def test_flash_decode_head_dim_256_on_card(cuda, t, group, kh):
+    """bf16 decode at head dim 256 on the cluster kernel: recurrentgemma-2b's
+    ring (MQA, 10 heads on one KV head; T = 2,048) and ragged T, cur at
+    every split boundary, T-1, T and past T; one launch a call."""
+    curs = _decode_curs(t)
+    b, d = len(curs), 256
+    g = torch.Generator(device=cuda).manual_seed(t + group)
+    q = torch.randn(b, kh * group, d, generator=g, device=cuda).to(torch.bfloat16)
+    k, v = (torch.randn(b, t, kh, d, generator=g, device=cuda).to(torch.bfloat16)
+            for _ in range(2))
+    cur = torch.tensor(curs, dtype=torch.int32, device=cuda)
+    ops.reset_launch_counts()
+    got = ops.flash_decode(q, k, v, cur)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), ref.flash_decode(q, k, v, cur).float(),
+                               rtol=TOL[torch.bfloat16], atol=TOL[torch.bfloat16])
+    assert ops.ENTRY_LAUNCHES == {"repro_torch_flash_decode_cluster": 1}
+
+
+@pytest.mark.gpu
+def test_flash_decode_head_dim_256_f32_is_refused_on_card(cuda):
+    z = torch.zeros(1, 64, 1, 256, device=cuda)
+    with pytest.raises(ValueError, match="cluster kernel"):
+        ops.flash_decode(torch.zeros(1, 10, 256, device=cuda), z, z,
+                         torch.zeros(1, dtype=torch.int32, device=cuda))
 
 
 @pytest.mark.gpu

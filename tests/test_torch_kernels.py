@@ -210,6 +210,8 @@ def test_wrapper_argument_checks(call, error):
 @pytest.mark.parametrize("dtype,d,kernel", [
     (torch.bfloat16, 128, "cluster"),  # granite-3-8b's decode
     (torch.bfloat16, 64, "cluster"),
+    (torch.bfloat16, 256, "cluster"),  # recurrentgemma-2b's local-attention decode
+    (torch.float32, 256, "tile"),      # which refuses it (below)
     (torch.bfloat16, 96, "tile"),
     (torch.bfloat16, 32, "tile"),
     (torch.float32, 128, "tile"),
@@ -217,6 +219,19 @@ def test_wrapper_argument_checks(call, error):
 ])
 def test_decode_kernel_routing(dtype, d, kernel):
     assert ops._decode_kernel(dtype, d) == kernel
+
+
+def test_head_dim_256_only_on_the_cluster_route():
+    """bf16 decode at D 256 passes the checks at the cluster kernel's limit;
+    f32 decode (the tile kernel) and K4 stop at 128, with a message that
+    names the route that takes 256."""
+    q = torch.zeros(4, 10, 256, dtype=torch.bfloat16)
+    kc = torch.zeros(4, 64, 1, 256, dtype=torch.bfloat16)
+    assert ops._check_cuda("flash_decode", (q, kc, kc), 10, 1, 256, max_head_dim=256) == 1
+    for name, dt in (("flash_decode", torch.float32), ("flash_attention", torch.bfloat16)):
+        with pytest.raises(ValueError, match="head dim 256 .*cluster kernel"):
+            ops._check_cuda(name, (q.to(dt), kc.to(dt), kc.to(dt)), 10, 1, 256)
+    assert ops._attention_kernel(torch.bfloat16, 256, 10) == "cuda_core"
 
 
 @pytest.mark.parametrize("b,kh,t,sms,want", [

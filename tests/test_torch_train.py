@@ -22,6 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro.configs.granite_3_8b import smoke_config as jax_granite
 from repro.configs.recurrentgemma_2b import smoke_config as jax_smoke
@@ -48,7 +49,13 @@ from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.loop import PreemptionError, Trainer, TrainLoopConfig, make_shuffler
 from repro_torch.train.optimizer import AdamW, AdamWConfig
 from repro_torch.train.steps import init_train_state, make_train_step
-from repro_torch.utils.tree import flatten_with_path, path_str, tree_leaves, tree_unflatten
+from repro_torch.utils.tree import (
+    flatten_with_path,
+    path_str,
+    tree_leaves,
+    tree_map,
+    tree_unflatten,
+)
 
 VOCAB, SEQ, RECORDS, BATCH = 128, 32, 32, 4
 
@@ -166,6 +173,66 @@ def test_step_runs_the_scan_per_rglru_layer(pair, monkeypatch, remat, fwd_per_la
     layers = sum(p.count("rglru") * r for p, r in cfg.stages)
     assert layers == 6
     assert calls == {"fwd": fwd_per_layer * layers, "bwd": layers}
+
+
+def test_dots_remat_matches_jax_checkpoint_dots(pair):
+    """``remat="dots"`` (the selective-checkpoint policy) against JAX's
+    ``jax.grad`` under ``checkpoint_dots``: the loss to 1e-5, each gradient
+    leaf to 1e-4 of its largest entry."""
+    jcfg, jparams, tcfg, tparams = pair
+    jcfg, tcfg = jcfg.replace(remat="dots"), tcfg.replace(remat="dots")
+    toks, labels = _batch(32, 11)
+    (jl, _), jg = jax.jit(jax.value_and_grad(
+        lambda p: jm.loss_fn(jcfg, p, {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)}),
+        has_aux=True))(jparams)
+    tl, _, tg = _torch_loss_and_grads(tcfg, tparams, toks, labels)
+    _rel_close(tl, jl, 1e-5)
+    for g, want in zip(tg, jax.tree_util.tree_leaves(jg)):
+        _rel_close(g, want, 1e-4)
+
+
+class _DotCounter(TorchDispatchMode):
+    """Counts the matrix products dispatched while it is active."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func in tm._DOT_OPS:
+            self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.fixture(scope="module")
+def dot_counts(pair):
+    """{remat: (matrix products in the forward, in the backward)}."""
+    _, _, tcfg, tparams = pair
+    toks, labels = _batch(32, 12)
+    out = {}
+    for remat in ("none", "dots", "full"):
+        leaves = [p.clone().requires_grad_() for p in tree_leaves(tparams)]
+        fwd, bwd = _DotCounter(), _DotCounter()
+        with fwd:
+            loss, _ = tm.loss_fn(tcfg.replace(remat=remat), tree_unflatten(tparams, leaves),
+                                 {"tokens": torch.from_numpy(toks), "labels": torch.from_numpy(labels)})
+        with bwd:
+            torch.autograd.grad(loss, leaves)
+        out[remat] = (fwd.n, bwd.n)
+    return out
+
+
+def test_dots_backward_recomputes_no_matrix_product(pair, dot_counts):
+    """Under ``"dots"`` the backward runs only the gradients' products, as
+    without remat; under ``"full"`` it also recomputes the pattern
+    periods' products: all of the forward's but the logits' and, per
+    period, the FFN's output product (checkpoint stops a recompute once
+    the tensors the backward needs are back, and no backward needs that
+    product's output)."""
+    periods = sum(r for _, r in pair[2].stages)
+    (fwd, none_bwd), dots, full = dot_counts["none"], dot_counts["dots"], dot_counts["full"]
+    assert dots == (fwd, none_bwd) and full[0] == fwd
+    assert full[1] - none_bwd == fwd - 1 - periods
 
 
 # ---------------------------------------------------------------- optimizer
@@ -403,6 +470,52 @@ def test_jax_checkpoint_restores_into_port(pair, corpus, jax_run, tmp_path):
 
         assert path_str(path) == jax_path_str(jpath)
         np.testing.assert_array_equal(leaf.numpy(), np.asarray(jleaf))
+
+
+def test_trainer_log_path_writes_the_jax_trainers_records(pair, corpus, jax_run, tmp_path):
+    """``log_path``: one JSON record a step, appended, with the keys of the
+    JAX ``Trainer``'s records; the file is closed at the end."""
+    jt, init = jax_run
+    log = tmp_path / "metrics.jsonl"
+    log.write_text('{"earlier": 1}\n')
+    tt = _torch_trainer(corpus, pair[2], steps=3, log_path=str(log))
+    _copy_params(tt.state["params"], init)
+    tt.train()
+    lines = [json.loads(x) for x in log.read_text().splitlines()]
+    assert lines[0] == {"earlier": 1} and lines[1:] == tt.history
+    assert [r["step"] for r in lines[1:]] == [1, 2, 3]
+    assert all(set(r) == set(jt.history[0]) for r in lines[1:])
+    assert tt._log_f is None
+
+
+@pytest.mark.parametrize("keep", [1, 3])
+def test_trainer_keeps_keep_ckpts_checkpoints(pair, corpus, tmp_path, keep):
+    tt = _torch_trainer(corpus, pair[2], steps=4, ckpt_every=1, ckpt_dir=str(tmp_path),
+                        keep_ckpts=keep)
+    assert tt.ckpt.keep == keep
+    tt.train()
+    assert sorted(tt.ckpt._valid_checkpoints()) == list(range(5 - keep, 5))
+
+
+def test_save_async_snapshots_then_restores_as_save(tmp_path):
+    """``save_async`` copies the state on the caller's thread: updating it
+    in place right after does not reach the file; after ``wait`` the
+    checkpoint restores to the leaves that ``save`` writes."""
+    state = {"w": torch.randn(64, 32), "m": {"b": torch.randn(5).bfloat16()},
+             "step": torch.tensor(3, dtype=torch.int32)}
+    snap = tree_map(torch.clone, state)
+    a, b = CheckpointManager(str(tmp_path / "a")), CheckpointManager(str(tmp_path / "b"))
+    a.save_async(3, state, extra={"epoch": 1})
+    for leaf in tree_leaves(state):
+        leaf.add_(1)
+    b.save(3, snap, extra={"epoch": 1})
+    a.wait()
+    assert a._pending is None and a.latest_step() == 3
+    got_a, extra_a, _ = a.restore(snap)
+    got_b, extra_b, _ = b.restore(snap)
+    assert extra_a == extra_b == {"epoch": 1}
+    for x, y, want in zip(tree_leaves(got_a), tree_leaves(got_b), tree_leaves(snap)):
+        assert torch.equal(x, want) and torch.equal(y, want)
 
 
 def test_checkpoint_roundtrip_bf16_and_gc(tmp_path):
