@@ -90,7 +90,8 @@
    step 4's model check).
 11. Trains recurrentgemma-2b at full width and depth through
    ``repro_torch.launch.train`` (seq 4096, batch 1, 8 steps, AdamW,
-   ``remat="dots"`` per pattern period): checks 8 finite losses and 36 ``rglru_scan`` and
+   ``remat="dots"``: the blocks' work between products checkpointed):
+   checks 8 finite losses and 36 ``rglru_scan`` and
    18 ``rglru_scan_bwd`` launches a step (18 RG-LRU layers, each scan run
    forward and again in the recompute); prints Eq. 1's numbers, the step
    times and the peak memory; then trains it again through the tiered
@@ -99,7 +100,8 @@
    step, the summary's ``cache`` and ``drift`` blocks, the drift report
    within its tolerances; then profiles two steady steps (device time by
    kernel, busy share, peak memory) under ``remat="dots"`` and again
-   under ``"full"``.
+   under ``"full"``, their step times side by side; each peak must stay
+   5 GiB under the card's memory.
 12. Prefills recurrentgemma-2b at full width and depth (4 x 4,096
    tokens, through ``make_prefill_step``) and decodes 64 greedy steps
    past it (``make_decode_step``: RG-LRU state caches, 2,048-slot
@@ -112,7 +114,21 @@
    width and 4 of 40 layers: prefill -> ``extend_cache`` -> 8
    scalar-position decode steps against prefill at 3e-2; and
    ``blocked_attention`` at granite's 4,096-token context against K4.
-13. Prints ``{"kernels": [...]}``, then ``{"ok": true, "device": ...}`` as
+13. Serves qwen2-moe-a2.7b at full width and depth (24 ``moe`` layers,
+   60 routed experts top-4 and 4 shared; 14,315,587,584 parameters in
+   f32) through the serving launcher with step 5's checks; profiles its
+   steady decode (device time by operation: dispatch and combine, the
+   experts' products, the other products, casts); checks one decode step
+   of its 8-slot arena dense against ragged, and a 64-token prefill under
+   ``impl="ragged"`` against teacher-forced ``"dense"`` decode, in f32
+   (the strict check) and in bf16 (counting the routings that differ);
+   trains it at full width and 4 of 24 layers for 8 steps of 4,096 tokens
+   (finite losses, aux loss above 0); and checks minitron-8b and
+   phi4-mini-3.8b at full depth and dbrx-132b at 2 of 40 layers, prefill
+   against teacher-forced decode in f32 and bf16 (K4 and K6 at groups 3,
+   4 and 6).  The kernel checks of step 3 also run K4 at these configs'
+   heads and K6 at groups 3 and 6.
+14. Prints ``{"kernels": [...]}``, then ``{"ok": true, "device": ...}`` as
    the last line.  Any failed check exits non-zero before those lines.
 """
 from __future__ import annotations
@@ -176,7 +192,11 @@ SCAN_SHAPES = ((1, 4096, 2560), (3, 1000, 2560 + 96), (2, 1, 2560), (1, 16385, 2
 # flash_decode's sweep: arena lengths (one key, one and two 32-key tiles, the
 # serving arena, granite-3-8b's context) and GQA groups
 DECODE_LENGTHS = (1, 32, 33, 160, 4096)
-DECODE_GROUPS = (1, 4, 8, 16)
+DECODE_GROUPS = (1, 3, 4, 6, 8, 16)  # 3: phi4-mini-3.8b's, 6: dbrx-132b's
+# flash_attention at the copied configs' heads (query heads, KV heads), D
+# 128: qwen2-moe-a2.7b (group 1, the tensor cores), phi4-mini-3.8b (group 3)
+# and dbrx-132b (group 6), whose bf16 groups do not divide 64: CUDA cores
+PREFILL_HEADS = ((16, 16), (24, 8), (48, 8))
 
 LONG_CONTEXT = 4096  # granite-3-8b's context: flash_attention's second timed shape
 
@@ -192,6 +212,24 @@ RG_RING = (RG_BATCH, 10, 1, 256, 2048)
 GRANITE_LAYERS, GRANITE_PROMPT, GRANITE_EXTEND = 4, 120, 8
 BLOCKED_BLOCK = 1024  # attn_block's default: the blocked check at LONG_CONTEXT
 
+MOE_ARCH = "qwen2-moe-a2.7b"
+# qwen2-moe-a2.7b at full width: prefill of MOE_CHECK_TOKENS under
+# impl="ragged" (nothing dropped) against as many teacher-forced decode
+# steps under "dense"
+MOE_CHECK_TOKENS = 64
+# teacher-forced logits against prefill's at full width: f32 (the strict
+# check) and bf16, whose rounding at depth alone moves the logits by a few
+# 1e-2 (teacher_forced_check holds recurrentgemma-2b to 5e-2 for the same reason)
+F32_LOGITS_TOL, BF16_LOGITS_TOL = 1e-3, 5e-2
+# its training at full width and MOE_TRAIN_LAYERS of 24 layers (the full
+# depth's f32 weights and AdamW state need ~229 GB)
+MOE_TRAIN_LAYERS, MOE_TRAIN_SEQ, MOE_TRAIN_STEPS = 4, 4096, 8
+# the copied configs' prefill against teacher-forced decode, bf16: (arch,
+# layers kept or None for the full depth); dbrx-132b's 40 layers hold 13 GB
+# of f32 weights each
+COPIED_CHECKS = (("minitron-8b", None), ("phi4-mini-3.8b", None), ("dbrx-132b", 2))
+COPIED_TOKENS = 64
+
 SERVE_ARGS = ["--arch", "granite-3-8b", "--serve-mode", "continuous",
               "--max-batch", "8", "--prompt-capacity", "128", "--gen", "32",
               "--requests", "16", "--offered-load", "1.0", "--seed", "0",
@@ -203,6 +241,7 @@ SERVE_CACHE_RECORDS, SERVE_FEATURES_PER_REQUEST = 64, 8
 SERVE_TIER_FLAGS = ["--cache-mb", str(SERVE_CACHE_RECORDS * 68 / 2**20), "--num-features", "512",
                     "--features-per-request", str(SERVE_FEATURES_PER_REQUEST),
                     "--zipf-alpha", "1.1", "--eviction-policy", "belady"]
+MOE_SERVE_ARGS = ["--arch", MOE_ARCH] + SERVE_ARGS[2:]
 
 
 class SmokeFailure(RuntimeError):
@@ -350,12 +389,13 @@ def kernel_phase(dev):
     rows = []
     print("flash_attention vs plain version (bf16: tensor-core kernel; f32: CUDA-core kernel):")
     for dt in (torch.bfloat16, torch.float32):
-        for p, causal in ((128, True), (200, True), (200, False)):
-            q, k, v = randn(1, p, 32, 128, dt=dt), randn(1, p, 8, 128, dt=dt), randn(1, p, 8, 128, dt=dt)
+        for (h, kh), (p, causal) in itertools.product(((32, 8),) + PREFILL_HEADS,
+                                                      ((128, True), (200, True), (200, False))):
+            q, k, v = randn(1, p, h, 128, dt=dt), randn(1, p, kh, 128, dt=dt), randn(1, p, kh, 128, dt=dt)
             got = ops.flash_attention(q, k, v, causal)
             torch.cuda.synchronize()
             compare(f"{dt} q{tuple(q.shape)} kv{tuple(k.shape)} causal={causal} "
-                    f"({ops._attention_kernel(dt, 128, 4)})",
+                    f"({ops._attention_kernel(dt, 128, h // kh)})",
                     got, ref.flash_attention(q, k, v, causal), TOL[str(dt)])
 
     # the prefill path's shape and dtype: one admitted 128-token prompt;
@@ -865,7 +905,7 @@ def serve_phase():
     launches are counted from 0.  Returns the first run's launches."""
     import gc
 
-    launches = serve_run(SERVE_ARGS)
+    launches, _ = serve_run(SERVE_ARGS)
     gc.collect()
     torch.cuda.empty_cache()  # the first engine's 8 B parameters
     serve_run(SERVE_ARGS + SERVE_TIER_FLAGS, _check_feature_tier)
@@ -886,19 +926,25 @@ def _check_feature_tier(report):
 
 
 def serve_run(args, extra_check=None):
+    """One run of the serving launcher at the full width and depth of
+    ``args``' arch, its launches counted from 0: every request done, no
+    slot leak, one K4 launch a layer per prefill and one K6 launch (on the
+    cluster kernel) a layer per decode step, the warmup's included.
+    Returns the launches and the report."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
 
-    print("serving granite-3-8b at full width:", " ".join(args))
+    arch = args[args.index("--arch") + 1]
+    print(f"serving {arch} at full width:", " ".join(args))
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     report = serve.main(args)
     launches = dict(ops.LAUNCHES)
     entries = dict(ops.ENTRY_LAUNCHES)
     print(f"  serve run incl. init {time.perf_counter() - t0:.1f} s; launches {launches}")
-    layers = get_config("granite-3-8b").num_layers  # 40
-    check(report["arch"] == "granite-3-8b", "not the full-width config")
+    layers = get_config(arch).num_layers
+    check(report["arch"] == arch, "not the full-width config")
     check(report["requests"] == 16, f"{report['requests']} of 16 requests completed")
     check(report["slot_leaks"] == 0, f"{report['slot_leaks']} slots leaked")
     want_fa = layers * (report["prefills"] + 1)
@@ -912,15 +958,16 @@ def serve_run(args, extra_check=None):
     print(f"  launches by entry point {entries}")
     if extra_check is not None:
         extra_check(report)
-    return launches
+    return launches, report
 
 
-def profile_phase(dev, steps=5):
+def profile_phase(dev, arch="granite-3-8b", params=None, steps=5):
     """Where a steady decode step's time goes: all 8 slots live at full
     width, ``steps`` engine steps under torch.profiler; prints device time
     by kernel, device time per step and the device's busy share of the
-    wall time.  Runs after the main path, so its launches are not counted
-    there."""
+    wall time; for a MoE config also device time by operation class
+    (``_moe_classes``).  Runs after the main path, so its launches are not
+    counted there.  Returns the engine (8 live slots)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -928,8 +975,9 @@ def profile_phase(dev, steps=5):
     from repro_torch.models import model as M
     from repro_torch.serve import Request, ServeEngine
 
-    cfg = get_config("granite-3-8b")
-    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    cfg = get_config(arch)
+    if params is None:
+        params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     eng = ServeEngine(cfg, params, max_batch=8, prompt_capacity=128, max_new_tokens=32)
     eng.warmup()
     rng = torch.Generator().manual_seed(3)
@@ -939,7 +987,8 @@ def profile_phase(dev, steps=5):
     eng.step()  # admits all 8 and decodes once
     eng.step()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=cfg.moe is not None) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             eng.step()
@@ -952,13 +1001,45 @@ def profile_phase(dev, steps=5):
               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     check(bool(events), "the profiler recorded no device activity")
     device_us = sum(e.self_device_time_total for e in events)
-    print(f"profile of {steps} decode steps (8 live slots, full width): "
+    print(f"profile of {steps} decode steps ({arch}, 8 live slots, full width): "
           f"wall {1e3 * wall / steps:.2f} ms/step, device busy "
           f"{1e-3 * device_us / steps:.2f} ms/step, busy share "
           f"{1e-6 * device_us / wall:.3f}")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"  {e.self_device_time_total / steps / 1e3:8.3f} ms/step "
               f"{e.count // steps:5d} calls/step  {e.key[:100]}")
+    if cfg.moe is not None:
+        split = _moe_classes(prof, cfg.moe.num_experts)
+        print("  device ms/step by operation: " + ", ".join(
+            f"{c} {v / steps / 1e3:.2f} ({v / max(device_us, 1):.3f})" for c, v in split.items()))
+    return eng
+
+
+def _moe_classes(prof, experts):
+    """Device microseconds of a MoE step by the operations that launched
+    them: the experts' products (``aten::bmm`` batched over the E
+    experts), the rest of the einsums (the dispatch and combine products
+    and their operands' copies), the other matrix products
+    (``aten::matmul``, every ``@``: attention, shared experts, logits) and
+    the f32 -> bf16 casts (``aten::_to_copy``: the weights', chiefly).
+    Reads the profile's CPU operations with their input shapes (an
+    einsum's operands are not recorded, its ``bmm``'s are)."""
+    from torch.autograd import DeviceType
+
+    einsum = experts_us = matmul = casts = 0.0
+    for e in prof.key_averages(group_by_input_shape=True):
+        if e.device_type != DeviceType.CPU:
+            continue
+        if e.key == "aten::einsum":
+            einsum += e.device_time_total
+        elif e.key == "aten::bmm" and e.input_shapes and e.input_shapes[0][:1] == [experts]:
+            experts_us += e.device_time_total
+        elif e.key == "aten::matmul":
+            matmul += e.device_time_total
+        elif e.key == "aten::_to_copy":
+            casts += e.device_time_total
+    return {"dispatch and combine": einsum - experts_us, "expert GEMMs": experts_us,
+            "other GEMMs": matmul, "casts": casts}
 
 
 class _EventTimed:
@@ -1469,6 +1550,8 @@ def train_profile_phase(dev, steps=2):
 
     classes = {"GEMM": ("nvjet", "gemm", "cutlass", "xmma"), "rglru_scan": ("rglru_scan", "scan_ring"),
                "softmax/reduce": ("softmax", "reduce")}
+    card_gib = torch.cuda.get_device_properties(dev).total_memory / 2**30
+    step_ms = {}
     for remat in ("dots", "full"):
         gc.collect()
         torch.cuda.empty_cache()
@@ -1498,6 +1581,9 @@ def train_profile_phase(dev, steps=2):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        check(peak <= card_gib - 5, f"remat={remat!r} peaks at {peak:.2f} of the card's "
+              f"{card_gib:.2f} GiB, less than 5 GiB under it")
+        step_ms[remat] = 1e3 * plain_wall / steps
         events = [e for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
         check(bool(events), "the profiler recorded no device activity")
@@ -1522,6 +1608,8 @@ def train_profile_phase(dev, steps=2):
             print(f"  {e.self_device_time_total / steps / 1e3:9.3f} ms/step "
                   f"{e.count // steps:5d} calls/step  {e.key[:100]}")
         del state, out, prof
+    print(f"  remat 'dots' {step_ms['dots']:.1f} against 'full' {step_ms['full']:.1f} ms a step "
+          f"(host clock, this call): ratio {step_ms['dots'] / step_ms['full']:.3f}")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1780,6 +1868,269 @@ def blocked_attention_check(dev):
             ops.flash_attention(q, k, v), TOL["torch.bfloat16"])
 
 
+# --------------------------------------------- MoE and the copied configs
+
+
+def _free():
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def moe_serve_phase(dev):
+    """qwen2-moe-a2.7b at published width and depth (24 ``moe`` layers, 60
+    routed experts top-4 and 4 shared, f32 storage, bf16 compute) through
+    the serving launcher (``MOE_SERVE_ARGS``), with ``serve_run``'s checks;
+    returns its launches."""
+    _free()
+    launches, report = serve_run(MOE_SERVE_ARGS)
+    print(f"  {MOE_ARCH}: {report['tokens_per_s']} tokens/s, decode "
+          f"{report['decode_ms_per_step']:.2f} ms a step, prefill "
+          f"{report['prefill_ms_per_request']:.2f} ms a request, TTFT p50/p99 "
+          f"{report['ttft_p50_steps']}/{report['ttft_p99_steps']} steps, peak memory "
+          f"{report['peak_memory_gib']:.2f} GiB")
+    return launches
+
+
+class _Routes:
+    """Records the expert ids of every MoE routing in a scope (the port's
+    ``layers.moe._route``), as ``_EventTimed`` brackets ``csr_dot``."""
+
+    def __init__(self):
+        from repro_torch.layers import moe
+
+        self.moe, self.ids = moe, []
+
+    def __enter__(self):
+        inner = self.inner = self.moe._route
+
+        def recorded(logits, k):
+            out = inner(logits, k)
+            self.ids.append(out[1])
+            return out
+
+        self.moe._route = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._route = self.inner
+
+
+def _flips(a, b):
+    """Routings (rows of expert ids, (L, N, k)) whose sets of experts
+    differ between two runs."""
+    return int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+
+
+def _entries(ops):
+    return ", ".join(f"{k.removeprefix('repro_torch_')} x{v}"
+                     for k, v in ops.ENTRY_LAUNCHES.items() if "flash" in k)
+
+
+def _teacher_forced(cfg, prefill_cfg, params, toks, dev, label, tol):
+    """``prefill_cfg``'s prefill of ``toks`` (1, N) against N teacher-forced
+    ``cfg`` decode steps from ``init_decode_cache(cfg, 1, N)``: one K4
+    launch a layer in the prefill, one K6 launch a layer a step, the last
+    logits finite and, unless ``tol`` is None, within ``tol``.  For a MoE
+    config, also counts the (token, layer) routings whose experts differ
+    between the two runs.  Returns the decode's launches by entry point
+    and the prefill's logits."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+
+    n, layers = toks.shape[1], cfg.num_layers
+    ops.reset_launch_counts()
+    with _Routes() as pre_ids:
+        _, want = M.prefill(prefill_cfg, params, toks)
+    torch.cuda.synchronize()
+    check(ops.LAUNCHES["flash_attention"] == layers,
+          f"prefill launched flash_attention {ops.LAUNCHES['flash_attention']} times")
+    line = f"  {label}: prefill {_entries(ops)}"
+    ops.reset_launch_counts()
+    cache = M.init_decode_cache(cfg, 1, n, dev)
+    with _Routes() as dec_ids:
+        for i in range(n):
+            cache, got = M.decode_step(cfg, params, cache, toks[:, i:i + 1])
+    torch.cuda.synchronize()
+    check(ops.LAUNCHES["flash_decode"] == layers * n,
+          f"decode launched flash_decode {ops.LAUNCHES['flash_decode']} times, want {layers * n}")
+    line += f", decode {_entries(ops)}; logits max |{float(want.float().abs().max()):.3f}|"
+    if cfg.moe is not None:
+        pre = torch.stack([x[0] for x in pre_ids.ids])                    # (L, N, k)
+        dec = torch.stack([x[0, 0] for x in dec_ids.ids]).unflatten(0, (n, layers)).transpose(0, 1)
+        line += f"; {_flips(pre, dec)} of {n * layers} (token, layer) routings differ"
+    print(line)
+    if tol is None:
+        check(bool(torch.isfinite(got).all()), f"{label}: logits not finite")
+        print(f"  {label}: last logits {tuple(got.shape)}: max_abs_err "
+              f"{float((got.float() - want.float()).abs().max()):.3e} (no tolerance held)")
+    else:
+        compare(f"{label}: last logits {tuple(got.shape)}", got, want, tol)
+    return dict(ops.ENTRY_LAUNCHES), want
+
+
+def _dtype_checks(cfg, pre, params, toks, dev, label, bf16_tol):
+    """``_teacher_forced`` in f32 compute (K4 and K6 on their f32 kernels)
+    at F32_LOGITS_TOL, then in bf16 (the tensor-core K4 where the group
+    divides 64, K6 on its cluster kernel) at ``bf16_tol``; prints how far
+    the bf16 prefill lies from the f32 one, bf16's own rounding at this
+    depth."""
+    n, layers = toks.shape[1], cfg.num_layers
+    prefills = []
+    for dtype, tol, entry in (("float32", F32_LOGITS_TOL, "repro_torch_flash_decode"),
+                              ("bfloat16", bf16_tol, "repro_torch_flash_decode_cluster")):
+        entries, want = _teacher_forced(cfg.replace(dtype=dtype), pre.replace(dtype=dtype),
+                                        params, toks, dev, f"{label} {dtype}", tol)
+        check(entries.get(entry, 0) == layers * n, f"{dtype} decode did not run on {entry}")
+        prefills.append(want.float())
+    print(f"  {label}: bf16 prefill vs f32 prefill max_abs_err "
+          f"{float((prefills[1] - prefills[0]).abs().max()):.3e}")
+
+
+def moe_checks_phase(dev):
+    """qwen2-moe-a2.7b at full width and depth, random f32 weights from
+    seed 0: the decode profile (``profile_phase``: 8 live slots, device
+    time by operation); one decode step of its 8-slot arena, dense against
+    ragged; then the prefill of MOE_CHECK_TOKENS under ``impl="ragged"``
+    (no capacity, so nothing dropped) against as many teacher-forced
+    decode steps under the default ``"dense"`` (a decode token is a group
+    of one, capacity 8 >= top-4, so nothing is dropped there either and
+    the two dispatches compute one function).  JAX's own teacher-forced
+    test leaves MoE out (``tests/test_models.py``), since its dense
+    prefill drops tokens over capacity.
+
+    f32 compute is the strict check, at F32_LOGITS_TOL.  In bf16 the two
+    runs' residual streams part by bf16 rounding, and at this depth that
+    moves a large share of the top-4 routings (the router's logits of 60
+    experts lie close); a changed routing changes the output by O(1), so
+    no logits tolerance is held at full depth in bf16: the error and the
+    count of changed routings are printed.  bf16 is held at
+    BF16_LOGITS_TOL on one layer of the same weights, where the routings
+    agree."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.utils.tree import tree_map
+
+    _free()
+    cfg = get_config(MOE_ARCH)
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    eng = profile_phase(dev, MOE_ARCH, params)
+    ragged = cfg.replace(moe=dataclasses.replace(cfg.moe, impl="ragged"))
+    toks = torch.tensor(eng._cur, device=dev)
+    print(f"{MOE_ARCH}: one decode step of the 8-slot arena, dense vs ragged:")
+    for dtype, tol in (("float32", F32_LOGITS_TOL), ("bfloat16", None)):
+        logits, ids = [], []
+        for c in (cfg, ragged):
+            arena = tree_map(lambda x: x.to(getattr(torch, dtype), copy=True) if x.is_floating_point()
+                             else x.clone(), eng.arena)
+            with _Routes() as r:
+                logits.append(M.decode_step(c.replace(dtype=dtype), params, arena, toks)[1])
+            ids.append(torch.stack([x[:, 0] for x in r.ids]))  # (L, 8, k)
+        label = f"{dtype}: logits {tuple(logits[0].shape)}, {_flips(*ids)} of " \
+                f"{ids[0].shape[0] * ids[0].shape[1]} (row, layer) routings differ"
+        if tol is None:
+            print(f"  {label}: max_abs_err {float((logits[0] - logits[1]).abs().max()):.3e} "
+                  "(no tolerance held)")
+        else:
+            compare(label, logits[0], logits[1], tol)
+    del eng, arena
+    _free()
+    toks = torch.randint(1, cfg.vocab_size, (1, MOE_CHECK_TOKENS),
+                         generator=torch.Generator(device=dev).manual_seed(5), device=dev)
+    print(f"{MOE_ARCH}: ragged prefill of {MOE_CHECK_TOKENS} tokens vs teacher-forced dense "
+          "decode from an empty cache:")
+    _dtype_checks(cfg, ragged, params, toks, dev, f"{cfg.num_layers} layers", None)
+    one = cfg.replace(stages=((cfg.stages[0][0], 1),))  # the first of the stacked layers
+    _teacher_forced(one, ragged.replace(stages=one.stages), params, toks, dev,
+                    "1 layer bfloat16", BF16_LOGITS_TOL)
+    del params
+    _free()
+
+
+def moe_train_phase(dev):
+    """qwen2-moe-a2.7b at full width and MOE_TRAIN_LAYERS of its 24 layers
+    (``reduced``: 2.9 B parameters, ~46 GB of f32 weights and AdamW state),
+    seq MOE_TRAIN_SEQ, batch 1, the default ``remat="dots"``,
+    MOE_TRAIN_STEPS steps through ``make_train_step`` on one batch: finite
+    losses and gradient norms, an aux loss above 0 on every step; prints
+    the step seconds and the peak memory."""
+    import math
+
+    from repro_torch.configs import get_config
+    from repro_torch.train.optimizer import AdamW, AdamWConfig
+    from repro_torch.train.steps import init_train_state, make_train_step
+    from repro_torch.utils.tree import tree_leaves
+
+    _free()
+    full = get_config(MOE_ARCH)
+    cfg = full.replace(stages=((full.stages[0][0], MOE_TRAIN_LAYERS),))
+    check(cfg.remat == "dots", f"remat {cfg.remat!r}")
+    opt = AdamW(AdamWConfig(lr=1e-3, warmup_steps=10))
+    state = init_train_state(cfg, torch.Generator(device=dev).manual_seed(1), opt, dev)
+    n_params = sum(p.numel() for p in tree_leaves(state["params"]))
+    step = make_train_step(cfg, opt)
+    toks = torch.randint(0, cfg.vocab_size, (1, MOE_TRAIN_SEQ + 1), dtype=torch.int32,
+                         generator=torch.Generator(device=dev).manual_seed(2), device=dev)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    print(f"training {MOE_ARCH} at full width, {MOE_TRAIN_LAYERS} of {full.num_layers} layers "
+          f"({n_params:,} parameters), seq {MOE_TRAIN_SEQ}, batch 1, remat {cfg.remat!r}:")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, auxes, norms, secs = [], [], [], []
+    for _ in range(MOE_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, out = step(state, batch)
+        losses.append(float(out["loss"]))
+        secs.append(time.perf_counter() - t0)
+        auxes.append(float(out["aux"]))
+        norms.append(float(out["grad_norm"]))
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    med = statistics.median(secs[1:])
+    print(f"  losses {[round(x, 6) for x in losses]}")
+    print(f"  aux {[round(x, 6) for x in auxes]}; gradient norms {[round(x, 4) for x in norms]}")
+    print(f"  step seconds {[round(x, 4) for x in secs]}; median of steps 2-{MOE_TRAIN_STEPS} "
+          f"{med:.4f} s ({MOE_TRAIN_SEQ / med:.0f} tokens/s); peak memory {peak:.2f} GiB")
+    check(all(math.isfinite(x) for x in losses + norms), "a loss or gradient norm is not finite")
+    check(all(a > 0 for a in auxes), f"aux losses {auxes}")
+    del state, out
+    _free()
+
+
+def copied_configs_phase(dev):
+    """The dense configs copied with the MoE slice, and dbrx-132b, on the
+    card: for each of COPIED_CHECKS, random f32 weights from seed 0, a
+    prefill of COPIED_TOKENS tokens (dbrx under ``impl="ragged"``, as in
+    ``moe_checks_phase``) against as many teacher-forced decode steps from
+    an empty cache (``_dtype_checks``): f32 at F32_LOGITS_TOL, bf16 at
+    BF16_LOGITS_TOL (dbrx's bf16 unheld, its routings part as
+    qwen2-moe's).  K4 and K6 at groups 4 (minitron-8b), 3 (phi4-mini-3.8b)
+    and 6 (dbrx-132b), D 128."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    for arch, layers in COPIED_CHECKS:
+        _free()
+        full = get_config(arch)
+        cfg = full if layers is None else full.replace(stages=((full.stages[0][0], layers),))
+        pre = cfg if cfg.moe is None else cfg.replace(
+            moe=dataclasses.replace(cfg.moe, impl="ragged"))
+        params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        print(f"{arch} ({cfg.num_layers} of {full.num_layers} layers, full width, "
+              f"{M.param_count(cfg):,} parameters, heads {cfg.num_heads}/{cfg.num_kv_heads}): "
+              f"prefill of {COPIED_TOKENS} tokens vs teacher-forced decode")
+        toks = torch.randint(1, cfg.vocab_size, (1, COPIED_TOKENS),
+                             generator=torch.Generator(device=dev).manual_seed(6), device=dev)
+        _dtype_checks(cfg, pre, params, toks, dev, arch,
+                      BF16_LOGITS_TOL if cfg.moe is None else None)
+        del params
+    _free()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1839,14 +2190,22 @@ def main() -> int:
     granite_scalar_decode_check(dev)
     blocked_attention_check(dev)
     print(f"recurrent decode phase and checks {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    moe_launches = moe_serve_phase(dev)
+    moe_checks_phase(dev)
+    moe_train_phase(dev)
+    copied_configs_phase(dev)
+    print(f"MoE and copied-config phases {time.perf_counter() - t0:.1f} s")
     for row in rows:
         if row["name"] == "flash_decode":
             row["head_dim_256"] = dict(wide_decode, launches=rg_launches["flash_decode"])
+        if row["name"] in ("flash_attention", "flash_decode"):
+            row["qwen2_moe_serve_launches"] = moe_launches[row["name"]]
     for name in ("rglru_scan", "rglru_scan_bwd"):
         rows.append(dict(scans[name], launches=train_launches[name]))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "context_4096", "head_dim_256",
-            "b1_ms",
+            "qwen2_moe_serve_launches", "b1_ms",
             "device_ids_ms", "device_ids_bound_ms", "bandwidth_ms")
     print(json.dumps({"kernels": [{k: row[k] for k in keys if k in row} for row in rows]}))
     print(json.dumps({"ok": True, "device": {

@@ -12,7 +12,11 @@ from typing import List
 from repro_torch.models.config import ModelConfig
 
 _MODULES = {
+    "dbrx-132b": "repro_torch.configs.dbrx_132b",
     "granite-3-8b": "repro_torch.configs.granite_3_8b",
+    "minitron-8b": "repro_torch.configs.minitron_8b",
+    "phi4-mini-3.8b": "repro_torch.configs.phi4_mini_3_8b",
+    "qwen2-moe-a2.7b": "repro_torch.configs.qwen2_moe_a2_7b",
     "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
 }
 

@@ -10,7 +10,8 @@ the CPU.  They have no backward.  Training differentiates
 ``causal_attention``, ``local_attention`` and ``blocked_attention``,
 plain torch products as the JAX package's training path computes them in
 jnp outside any Pallas kernel, on the masked ``sdpa`` of
-:mod:`repro_torch.layers.sdpa`.
+:mod:`repro_torch.layers.sdpa`; with ``ckpt`` their work between the
+products is a remat segment (``common.segment``).
 """
 from __future__ import annotations
 
@@ -19,8 +20,8 @@ import math
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.layers.common import dense_init
-from repro_torch.layers.sdpa import NEG_INF, _expand_kv, sdpa
+from repro_torch.layers.common import dense_init, segment
+from repro_torch.layers.sdpa import NEG_INF, _expand_kv, sdpa, softmax_weights
 
 
 def init_attn(generator, d_model: int, num_heads: int, num_kv_heads: int,
@@ -83,10 +84,10 @@ def causal_mask(s: int, t=None, offset: int = 0, device=None) -> torch.Tensor:
     return (kpos <= qpos)[None, None]
 
 
-def causal_attention(q, k, v):
+def causal_attention(q, k, v, ckpt: bool = False):
     """Causal attention through the masked ``sdpa`` (differentiable; the
     training path of the ``attn`` kind)."""
-    return sdpa(q, k, v, mask=causal_mask(q.shape[1], k.shape[1], device=q.device))
+    return sdpa(q, k, v, mask=causal_mask(q.shape[1], k.shape[1], device=q.device), ckpt=ckpt)
 
 
 def blocked_applies(s: int, block: int) -> bool:
@@ -95,7 +96,28 @@ def blocked_applies(s: int, block: int) -> bool:
     return s % block == 0 and s > block
 
 
-def blocked_attention(q, k, v, block: int = 1024):
+def _online_step(sc, m, l, diag, scale: float, dtype):
+    """One key block of the online softmax: the block's weights ``p`` in
+    ``dtype``, the new running max and sum, and the accumulator's
+    rescale."""
+    sc = sc.float() * scale
+    if diag is not None:
+        sc = torch.where(diag, sc, NEG_INF)
+    m_new = torch.maximum(m, sc.amax(-1))
+    p = torch.exp(sc - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    return p.to(dtype), m_new, l * corr + p.sum(-1), corr
+
+
+def _rescale(acc, corr, pv):
+    return acc * corr[..., None] + pv.float()
+
+
+def _normalise(acc, l, dtype):
+    return (acc / l.clamp(min=1e-30)[..., None]).to(dtype)
+
+
+def blocked_attention(q, k, v, block: int = 1024, ckpt: bool = False):
     """Flash-style causal attention as the JAX package computes it: per
     query block, an online softmax over key blocks (scores in the input
     dtype, then f32 times 1/sqrt(D); p cast to q's dtype before P·V; the
@@ -105,10 +127,11 @@ def blocked_attention(q, k, v, block: int = 1024):
     ``blocked_applies`` is false, the masked ``causal_attention``."""
     b, s, h, d = q.shape
     if not blocked_applies(s, block):
-        return causal_attention(q, k, v)
+        return causal_attention(q, k, v, ckpt)
     k, v = _expand_kv(q, k, v)
     scale = 1.0 / math.sqrt(d)
     pos = torch.arange(block, device=q.device)
+    diag = (pos[None, :] <= pos[:, None])[None, None]  # the diagonal block: key <= query
     outs = []
     for i in range(s // block):
         qi = q[:, i * block:(i + 1) * block]
@@ -117,22 +140,16 @@ def blocked_attention(q, k, v, block: int = 1024):
         acc = torch.zeros((b, h, block, d), dtype=torch.float32, device=q.device)
         for j in range(i + 1):
             kj, vj = k[:, j * block:(j + 1) * block], v[:, j * block:(j + 1) * block]
-            sc = torch.einsum("bshd,bthd->bhst", qi, kj).float() * scale
-            if j == i:  # the diagonal block: key <= query
-                sc = torch.where((pos[None, :] <= pos[:, None])[None, None], sc, NEG_INF)
-            m_new = torch.maximum(m, sc.amax(-1))
-            p = torch.exp(sc - m_new[..., None])
-            corr = torch.exp(m - m_new)
-            l = l * corr + p.sum(-1)
-            acc = acc * corr[..., None] + torch.einsum(
-                "bhst,bthd->bhsd", p.to(q.dtype), vj).float()
-            m = m_new
-        o = (acc / l.clamp(min=1e-30)[..., None]).to(q.dtype)
+            sc = torch.einsum("bshd,bthd->bhst", qi, kj)
+            p, m, l, corr = segment(ckpt, _online_step, sc, m, l, diag if j == i else None,
+                                    scale, q.dtype)
+            acc = segment(ckpt, _rescale, acc, corr, torch.einsum("bhst,bthd->bhsd", p, vj))
+        o = segment(ckpt, _normalise, acc, l, q.dtype)
         outs.append(o.transpose(1, 2))  # (b, block, h, d)
     return torch.cat(outs, dim=1)
 
 
-def local_attention(q, k, v, window: int):
+def local_attention(q, k, v, window: int, ckpt: bool = False):
     """Chunked sliding-window attention: O(S·w) instead of O(S²).  Up to
     ``window`` positions it is the masked ``sdpa``; past that, S must be a
     multiple of the window and each chunk attends to itself and the chunk
@@ -143,7 +160,7 @@ def local_attention(q, k, v, window: int):
     if s <= window:
         pos = torch.arange(s, device=dev)
         mask = causal_mask(s, device=dev) & (pos[:, None] - pos[None, :] < window)[None, None]
-        return sdpa(q, k, v, mask=mask)
+        return sdpa(q, k, v, mask=mask, ckpt=ckpt)
     c = window
     assert s % c == 0, f"seq {s} must be a multiple of window {c}"
     n = s // c
@@ -154,14 +171,13 @@ def local_attention(q, k, v, window: int):
     vprev = torch.cat([torch.zeros_like(vc[:, :1]), vc[:, :-1]], dim=1)
     kk = torch.cat([kprev, kc], dim=2)  # (B,n,2c,H,D)
     vv = torch.cat([vprev, vc], dim=2)
-    scores = torch.einsum("bnchd,bnthd->bnhct", qc, kk).float() / math.sqrt(d)
+    scores = torch.einsum("bnchd,bnthd->bnhct", qc, kk)
     qpos = torch.arange(c, device=dev)[:, None] + c
     kpos = torch.arange(2 * c, device=dev)[None, :]
     delta = qpos - kpos
     mask = (delta >= 0) & (delta < window)  # (c, 2c)
     first = kpos >= c  # chunk 0: the previous chunk is padding
     nmask = torch.cat([(mask & first)[None], mask[None].expand(n - 1, c, 2 * c)], dim=0)
-    scores = torch.where(nmask[None, :, None], scores, NEG_INF)
-    w = torch.softmax(scores, dim=-1).to(q.dtype)
+    w = segment(ckpt, softmax_weights, scores, nmask[None, :, None], d, q.dtype)
     o = torch.einsum("bnhct,bnthd->bnchd", w, vv)
     return o.reshape(b, s, h, d)

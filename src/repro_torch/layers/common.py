@@ -1,4 +1,4 @@
-"""Shared primitives: init, norms, activations."""
+"""Shared primitives: init, norms, activations, and the remat segment."""
 from __future__ import annotations
 
 import math
@@ -6,6 +6,7 @@ from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 def dense_init(
@@ -44,3 +45,15 @@ def activation_fn(name: str):
     if name in ("swiglu", "silu"):
         return F.silu
     raise ValueError(name)
+
+
+def segment(ckpt: bool, fn, *xs):
+    """``fn(*xs)``: a stretch of a block's work between two matrix
+    products.  With ``ckpt`` (``remat="dots"`` in training) it runs under
+    ``checkpoint``: the backward recomputes it from its inputs, which are
+    the products' outputs, and the products outside every segment keep
+    their own inputs, so no product is recomputed (JAX's
+    ``checkpoint_dots``).  The forward draws no random numbers."""
+    if ckpt:
+        return checkpoint(fn, *xs, use_reentrant=False, preserve_rng_state=False)
+    return fn(*xs)

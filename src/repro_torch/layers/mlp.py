@@ -1,13 +1,14 @@
 """Feed-forward blocks: SwiGLU / GeGLU / plain GeLU.
 
 Weights are stored in the storage dtype (f32) and cast to the compute
-dtype at each use, as in the JAX package.
+dtype at each use, as in the JAX package.  With ``ckpt`` the activation
+between the products is a remat segment (``common.segment``).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.layers.common import activation_fn, dense_init
+from repro_torch.layers.common import activation_fn, dense_init, segment
 
 
 def init_ffn(generator, d_model: int, d_ff: int, activation: str, dtype, device):
@@ -20,11 +21,15 @@ def init_ffn(generator, d_model: int, d_ff: int, activation: str, dtype, device)
     return p
 
 
-def apply_ffn(params, x: torch.Tensor, activation: str, dtype) -> torch.Tensor:
+def gated(act, g: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    return act(g) * h
+
+
+def apply_ffn(params, x: torch.Tensor, activation: str, dtype, ckpt: bool = False) -> torch.Tensor:
     act = activation_fn(activation)
     h = x @ params["w_in"].to(dtype)
     if "w_gate" in params:
-        h = act(x @ params["w_gate"].to(dtype)) * h
+        h = segment(ckpt, gated, act, x @ params["w_gate"].to(dtype), h)
     else:
-        h = act(h)
+        h = segment(ckpt, act, h)
     return h @ params["w_out"].to(dtype)

@@ -10,7 +10,9 @@ recurrence on the port's scan kernel (``ops.RGLRUScan``: the CUDA kernel
 forward and in reverse for the gradient on the card, the plain loops on
 the CPU) where JAX runs ``jax.lax.associative_scan``; and the
 single-token decode step (``apply_rglru_step``), plain torch as JAX
-computes it in jnp: one step needs no scan.
+computes it in jnp: one step needs no scan.  With ``ckpt`` the conv, and
+the gates with the scan and the output gate, are remat segments
+(``common.segment``) between the products.
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.layers.common import activation_fn, dense_init
+from repro_torch.layers.common import activation_fn, dense_init, segment
 
 C_CONST = 8.0
 
@@ -55,9 +57,12 @@ def _block_diag(u: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bshw,hwv->bshv", ub, w.to(dt)).reshape(b, s, width)
 
 
-def _causal_conv(u: torch.Tensor, conv_w: torch.Tensor, conv_b: torch.Tensor, history=None):
-    """Depthwise causal conv along time.  u: (B,S,W); conv_w: (CW, W).
-    Returns the output and the trailing ``CW - 1`` inputs."""
+def _causal_conv(u: torch.Tensor, conv_w: torch.Tensor, conv_b: torch.Tensor, dtype,
+                 history=None):
+    """Depthwise causal conv along time.  u: (B,S,W); conv_w: (CW, W),
+    taken in ``dtype``.  Returns the output and the trailing ``CW - 1``
+    inputs."""
+    conv_w, conv_b = conv_w.to(dtype), conv_b.to(dtype)
     cw = conv_w.shape[0]
     if history is None:
         pad = u.new_zeros((u.shape[0], cw - 1, u.shape[2]))
@@ -70,28 +75,41 @@ def _causal_conv(u: torch.Tensor, conv_w: torch.Tensor, conv_b: torch.Tensor, hi
     return out + conv_b[None, None, :], full[:, -(cw - 1):]
 
 
-def _gates(params, u: torch.Tensor):
-    """The decay ``a`` and the gated input ``b``, both f32."""
-    r = torch.sigmoid(_block_diag(u, params["wa"]) + params["ba"])
-    i = torch.sigmoid(_block_diag(u, params["wi"]) + params["bi"])
-    log_a = (-C_CONST * F.softplus(params["lam"].float())) * r.float()
+def _gates(ra, ri, u, ba, bi, lam):
+    """The decay ``a`` and the gated input ``b``, both f32, from the
+    gates' block-diagonal products ``ra`` and ``ri``."""
+    r = torch.sigmoid(ra + ba)
+    i = torch.sigmoid(ri + bi)
+    log_a = (-C_CONST * F.softplus(lam.float())) * r.float()
     a = torch.exp(log_a)
     beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
     return a, beta * (i.float() * u.float())
 
 
-def apply_rglru(params, x: torch.Tensor, dtype, h0=None, conv_hist=None):
-    """x: (B,S,d) -> (y, (h_last, conv_hist)).  Full-sequence path; the
-    carried state ``h_last`` stays f32."""
-    u = x @ params["wx"].to(dtype)
-    g = activation_fn("gelu")(x @ params["wg"].to(dtype))
-    u, hist = _causal_conv(u, params["conv_w"].to(dtype), params["conv_b"].to(dtype), conv_hist)
-    a, b = _gates(params, u)
+def _gate_products(params, u):
+    return _block_diag(u, params["wa"]), _block_diag(u, params["wi"])
+
+
+def _scan(ra, ri, u, g, ba, bi, lam, h0, dtype):
+    """The gates, the recurrence and the output gate: ``(h·gelu(g),
+    h_last)``."""
+    a, b = _gates(ra, ri, u, ba, bi, lam)
     if h0 is not None:
         b = torch.cat([b[:, :1] + a[:, :1] * h0.float()[:, None], b[:, 1:]], dim=1)
     h = ops.RGLRUScan.apply(a, b)
-    y = (h.to(dtype) * g) @ params["wo"].to(dtype)
-    return y, (h[:, -1], hist)
+    return h.to(dtype) * activation_fn("gelu")(g), h[:, -1]
+
+
+def apply_rglru(params, x: torch.Tensor, dtype, h0=None, conv_hist=None, ckpt: bool = False):
+    """x: (B,S,d) -> (y, (h_last, conv_hist)).  Full-sequence path; the
+    carried state ``h_last`` stays f32."""
+    u = x @ params["wx"].to(dtype)
+    g = x @ params["wg"].to(dtype)
+    u, hist = segment(ckpt, _causal_conv, u, params["conv_w"], params["conv_b"], dtype, conv_hist)
+    ra, ri = _gate_products(params, u)
+    y, h_last = segment(ckpt, _scan, ra, ri, u, g, params["ba"], params["bi"], params["lam"],
+                        h0, dtype)
+    return y @ params["wo"].to(dtype), (h_last, hist)
 
 
 def apply_rglru_step(params, x: torch.Tensor, state, dtype):
@@ -100,8 +118,8 @@ def apply_rglru_step(params, x: torch.Tensor, state, dtype):
     h_prev, conv_hist = state
     u = x @ params["wx"].to(dtype)
     g = activation_fn("gelu")(x @ params["wg"].to(dtype))
-    u, hist = _causal_conv(u, params["conv_w"].to(dtype), params["conv_b"].to(dtype), conv_hist)
-    a, b = _gates(params, u)
+    u, hist = _causal_conv(u, params["conv_w"], params["conv_b"], dtype, conv_hist)
+    a, b = _gates(*_gate_products(params, u), u, params["ba"], params["bi"], params["lam"])
     h = a[:, 0] * h_prev.float() + b[:, 0]  # the carried state stays f32
     y = (h.to(dtype) * g[:, 0]) @ params["wo"].to(dtype)
     return y[:, None], (h, hist)

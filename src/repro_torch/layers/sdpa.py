@@ -5,12 +5,16 @@ dtype before P·V.
 
 The training path's attention differentiates through it, and the
 attention kernels' plain versions (``kernels/ref.py``) are built on it.
+With ``ckpt`` the softmax between the two products is a remat segment
+(``common.segment``).
 """
 from __future__ import annotations
 
 import math
 
 import torch
+
+from repro_torch.layers.common import segment
 
 NEG_INF = -1e30
 
@@ -24,12 +28,18 @@ def _expand_kv(q, k, v):
     return k, v
 
 
-def sdpa(q, k, v, mask=None):
-    """Expanded-head attention.  mask broadcastable to (B,H,S,T), True=keep."""
-    d = q.shape[-1]
-    k, v = _expand_kv(q, k, v)
-    scores = torch.einsum("bshd,bthd->bhst", q, k).float() / math.sqrt(d)
+def softmax_weights(scores, mask, d: int, dtype):
+    """Raw scores to attention weights: f32, times 1/sqrt(d), masked
+    (True = keep), softmax, cast to ``dtype``."""
+    scores = scores.float() / math.sqrt(d)
     if mask is not None:
         scores = torch.where(mask, scores, NEG_INF)
-    w = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.softmax(scores, dim=-1).to(dtype)
+
+
+def sdpa(q, k, v, mask=None, ckpt: bool = False):
+    """Expanded-head attention.  mask broadcastable to (B,H,S,T), True=keep."""
+    k, v = _expand_kv(q, k, v)
+    scores = torch.einsum("bshd,bthd->bhst", q, k)
+    w = segment(ckpt, softmax_weights, scores, mask, q.shape[-1], q.dtype)
     return torch.einsum("bhst,bthd->bshd", w, v)

@@ -1,16 +1,24 @@
 """Block-level init/apply dispatch.
 
 A *block* is one residual unit of a stage pattern.  The port runs the
-``attn``, ``local_attn`` and ``rglru`` kinds in the JAX package's three
-modes:
+``attn``, ``local_attn``, ``rglru`` and ``moe`` kinds in the JAX
+package's three modes:
     train    full sequence, no cache
     prefill  full sequence, emits a decode cache
     decode   one token, updates its cache in place and returns it
+Blocks return ``(x, cache, aux)``, ``aux`` the MoE load-balancing loss of
+a ``moe`` block (an f32 scalar) and ``0.0`` for the other kinds.  A
+``moe`` block is an ``attn`` block whose FFN is ``layers/moe.py``'s.
 Decode (``M.decode_step``) takes one scalar position for the batch, or,
-for ``attn`` blocks, one position per row (continuous batching, the JAX
-package's ``M.decode_step_slots``); both write and attend through one
-path.  Per-row positions with a ``local_attn`` block are refused: the JAX package cannot run them either (its ring write is a
+for ``attn`` and ``moe`` blocks, one position per row (continuous
+batching, the JAX package's ``M.decode_step_slots``); both write and
+attend through one path.  Per-row positions with a ``local_attn`` block
+are refused: the JAX package cannot run them either (its ring write is a
 ``dynamic_update_slice`` at a scalar slot).  Other kinds are refused.
+
+In training, ``aux["remat_segments"]`` (``remat="dots"``) runs each
+block's work between its matrix products in remat segments
+(``common.segment``).
 """
 from __future__ import annotations
 
@@ -19,13 +27,14 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.layers import attention as attn
+from repro_torch.layers import moe as moe_lib
 from repro_torch.layers import rglru as rglru_lib
-from repro_torch.layers.common import rms_norm
+from repro_torch.layers.common import rms_norm, segment
 from repro_torch.layers.mlp import apply_ffn, init_ffn
 from repro_torch.layers.positional import apply_rope
 from repro_torch.models.config import ModelConfig
 
-PORTED_KINDS = ("attn", "local_attn", "rglru")
+PORTED_KINDS = ("attn", "local_attn", "rglru", "moe")
 ATTN_IMPLS = ("full", "blocked")
 
 
@@ -47,12 +56,15 @@ def init_block(generator, kind: str, cfg: ModelConfig, device):
     else:
         p["attn"] = attn.init_attn(generator, d, h, kv, hd, dt, device)
     p["norm2"] = torch.zeros((d,), dtype=dt, device=device)
-    p["ffn"] = init_ffn(generator, d, cfg.d_ff, cfg.activation, dt, device)
+    if kind == "moe":
+        p["moe"] = moe_lib.init_moe(generator, cfg, cfg.moe, dt, device)
+    else:
+        p["ffn"] = init_ffn(generator, d, cfg.d_ff, cfg.activation, dt, device)
     return p
 
 
 def init_cache(kind: str, cfg: ModelConfig, batch: int, capacity: int, device):
-    """Zeroed per-block decode cache: K/V (B, C, K, D) for ``attn``, a ring
+    """Zeroed per-block decode cache: K/V (B, C, K, D) for ``attn`` and ``moe``, a ring
     of ``min(window, C)`` slots for ``local_attn``, both in the compute
     dtype; for ``rglru`` the state ``h`` (B, W) in f32 and the conv
     history (B, CW-1, W) in the compute dtype."""
@@ -71,7 +83,7 @@ def init_cache(kind: str, cfg: ModelConfig, batch: int, capacity: int, device):
             "v": torch.zeros(shape, dtype=dt, device=device)}
 
 
-def _causal(q, k, v, cfg: ModelConfig, mode: str):
+def _causal(q, k, v, cfg: ModelConfig, mode: str, ckpt: bool):
     """The ``attn`` kind's causal attention in train and prefill: the
     blocked online softmax where ``attn_impl="blocked"`` takes its blocked
     branch; else the masked ``sdpa`` in training and the attention kernel
@@ -79,24 +91,27 @@ def _causal(q, k, v, cfg: ModelConfig, mode: str):
     if cfg.attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {cfg.attn_impl!r}")
     if cfg.attn_impl == "blocked" and attn.blocked_applies(q.shape[1], cfg.attn_block):
-        return attn.blocked_attention(q, k, v, cfg.attn_block)
+        return attn.blocked_attention(q, k, v, cfg.attn_block, ckpt)
     if mode == "train":
-        return attn.causal_attention(q, k, v)
+        return attn.causal_attention(q, k, v, ckpt)
     return attn.full_attention(q, k, v, causal=True)
 
 
-def _self_attention(p, x, cfg: ModelConfig, kind: str, mode: str, cache, pos, aux):
+def _rope(q, k, angles):
+    return apply_rope(q, angles), apply_rope(k, angles)
+
+
+def _self_attention(p, x, cfg: ModelConfig, kind: str, mode: str, cache, pos, aux, ckpt):
     dt = cfg.compute_dtype
     q, k, v = attn.qkv(p["attn"], x, dt)
     angles = aux.get("rope_angles")
     if angles is not None:
-        q = apply_rope(q, angles)
-        k = apply_rope(k, angles)
+        q, k = segment(ckpt, _rope, q, k, angles)
     if mode == "train":
         if kind == "local_attn":
-            o = attn.local_attention(q, k, v, cfg.local_window)
+            o = attn.local_attention(q, k, v, cfg.local_window, ckpt)
         else:
-            o = _causal(q, k, v, cfg, mode)
+            o = _causal(q, k, v, cfg, mode, ckpt)
         return attn.out_proj(p["attn"], o, dt), None
     if mode == "prefill":
         if kind == "local_attn":
@@ -108,7 +123,7 @@ def _self_attention(p, x, cfg: ModelConfig, kind: str, mode: str, cache, pos, au
             new = {"k": torch.roll(k[:, s - w:], roll, dims=1),
                    "v": torch.roll(v[:, s - w:], roll, dims=1)}
         else:
-            o = _causal(q, k, v, cfg, mode)
+            o = _causal(q, k, v, cfg, mode, False)
             new = {"k": k, "v": v}
         return attn.out_proj(p["attn"], o, dt), new
     # decode: row i writes its token at cur[i] (a scalar pos is every row
@@ -137,14 +152,14 @@ def _self_attention(p, x, cfg: ModelConfig, kind: str, mode: str, cache, pos, au
     return attn.out_proj(p["attn"], o, dt), cache
 
 
-def _rglru(p, x, cfg: ModelConfig, mode: str, cache):
+def _rglru(p, x, cfg: ModelConfig, mode: str, cache, ckpt: bool):
     dt = cfg.compute_dtype
     if mode == "decode":
         o, (hs, hist) = rglru_lib.apply_rglru_step(p["rglru"], x, (cache["h"], cache["conv"]), dt)
         cache["h"].copy_(hs)  # in place, as the attention caches
         cache["conv"].copy_(hist)
         return o, cache
-    o, (hs, hist) = rglru_lib.apply_rglru(p["rglru"], x, dt)
+    o, (hs, hist) = rglru_lib.apply_rglru(p["rglru"], x, dt, ckpt=ckpt)
     return o, ({"h": hs, "conv": hist.to(dt)} if mode == "prefill" else None)
 
 
@@ -158,18 +173,23 @@ def apply_block(
     pos: Optional[torch.Tensor] = None,
     aux: Optional[Dict[str, Any]] = None,
 ):
-    """Returns ``(x, cache)``; the cache is None in train mode.  (The JAX
-    function also returns an auxiliary loss, nonzero only for ``moe``
-    blocks, which the port does not run yet.)"""
+    """Returns ``(x, cache, aux loss)``; the cache is None in train mode,
+    the aux loss an f32 scalar for ``moe`` blocks and ``0.0`` for the
+    others."""
     _check_kind(kind)
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode must be train|prefill|decode, got {mode!r}")
-    h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    aux = aux or {}
+    ckpt = bool(aux.get("remat_segments"))
+    dt = cfg.compute_dtype
+    h = segment(ckpt, rms_norm, x, p["norm1"], cfg.norm_eps)
     if kind == "rglru":
-        o, new_cache = _rglru(p, h, cfg, mode, cache)
+        o, new_cache = _rglru(p, h, cfg, mode, cache, ckpt)
     else:
-        o, new_cache = _self_attention(p, h, cfg, kind, mode, cache, pos, aux or {})
+        o, new_cache = _self_attention(p, h, cfg, kind, mode, cache, pos, aux, ckpt)
     x = x + o
-    h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
-    y = apply_ffn(p["ffn"], h2, cfg.activation, cfg.compute_dtype)
-    return x + y, new_cache
+    h2 = segment(ckpt, rms_norm, x, p["norm2"], cfg.norm_eps)
+    if kind == "moe":
+        y, aloss = moe_lib.apply_moe(p["moe"], h2, cfg, cfg.moe, dt, ckpt)
+        return x + y, new_cache, aloss
+    return x + apply_ffn(p["ffn"], h2, cfg.activation, dt, ckpt), new_cache, 0.0

@@ -10,37 +10,42 @@ Parameters mirror the JAX tree: ``{"embed", "stages", "final_norm",
 dicts whose leaves are stacked on a leading ``repeats`` axis.  Decode
 caches likewise: ``{"pos": () or (B,) int32, "stages": [tuple of per-kind
 leaves stacked (L, ...)]}``, the kinds' leaves as ``blocks.init_cache``
-makes them (``attn`` K/V, ``local_attn`` rings, ``rglru`` ``h`` and
-``conv``).  A Python loop over the stacked layers takes the place of
-``lax.scan``.
+makes them (``attn`` and ``moe`` K/V, ``local_attn`` rings, ``rglru``
+``h`` and ``conv``).  A Python loop over the stacked layers takes the
+place of ``lax.scan``.
 
-Training rematerialises one pattern period at a time, as the JAX
-package's ``_remat_wrap`` does, with ``torch.utils.checkpoint``.
-``remat="full"`` drops the period's activations after the forward and
-recomputes the whole period in the backward.  ``remat="dots"`` (the
-default) is JAX's ``checkpoint_dots``: a selective-checkpoint policy keeps
-the outputs of every matrix product (``aten.mm``, ``bmm``, ``addmm``,
-``baddbmm``: every ``@`` and ``einsum`` of a period, batched ones
-included, as ``checkpoint_dots`` keeps every ``dot_general``) and the
-backward recomputes only the rest.
+Training rematerialises as the JAX package's ``_remat_wrap`` does, with
+``torch.utils.checkpoint``.  ``remat="full"`` checkpoints one pattern
+period at a time: it drops the period's activations after the forward
+and recomputes the whole period in the backward.  ``remat="dots"`` (the
+default) is JAX's ``checkpoint_dots``: no period-level checkpoint, but
+every stretch of a block's work between two matrix products (norms,
+RoPE, softmax, the conv, gates and scan, activations, MoE routing) is a
+checkpointed segment (``layers.common.segment``), so the backward
+recomputes the segments and no product.  The products keep their inputs
+and outputs as autograd saves them (JAX's policy recomputes the inputs;
+the port saves them, weight casts included, for more memory).
 """
 from __future__ import annotations
 
 import functools
+import math
 from typing import Any, Dict
 
 import torch
-from torch.utils.checkpoint import (
-    CheckpointPolicy,
-    checkpoint,
-    create_selective_checkpoint_contexts,
-)
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.layers.common import dense_init, rms_norm
 from repro_torch.layers.positional import default_positions, rope_angles
 from repro_torch.models.blocks import apply_block, init_block, init_cache
 from repro_torch.models.config import ModelConfig
-from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
+from repro_torch.utils.tree import (
+    flatten_with_path,
+    path_str,
+    tree_leaves,
+    tree_map,
+    tree_unflatten,
+)
 
 AUX_LOSS_WEIGHT = 0.01
 
@@ -100,40 +105,58 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device) -> Dict[st
     return params
 
 
+def param_count(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Parameters of ``cfg``, counted from shapes on the meta device
+    (nothing is allocated).  ``active_only``: routed expert weights count
+    ``experts_per_token / num_experts`` of their size, as JAX's
+    ``param_count``."""
+    shapes = init_params(cfg, None, torch.device("meta"))
+    if not active_only or cfg.moe is None:
+        return int(sum(math.prod(x.shape) for x in tree_leaves(shapes)))
+    frac = cfg.moe.experts_per_token / cfg.moe.num_experts
+    total = 0.0
+    for path, x in flatten_with_path(shapes):
+        n = math.prod(x.shape)
+        p = path_str(path)
+        if "/moe/w_" in "/" + p and "shared" not in p:
+            n = n * frac
+        total += n
+    return int(total)
+
+
 # ------------------------------------------------------------ stage loop
 
 
-_DOT_OPS = frozenset((torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
-                      torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default))
-
-
-def _save_dots(ctx, op, *args, **kwargs):
-    """``checkpoint_dots``: keep the matrix products' outputs."""
-    return CheckpointPolicy.MUST_SAVE if op in _DOT_OPS else CheckpointPolicy.PREFER_RECOMPUTE
-
-
 def _remat_wrap(fn, cfg: ModelConfig):
-    if cfg.remat == "none":
-        return fn
-    if cfg.remat not in ("dots", "full"):
+    """The pattern period's body under ``remat="full"``; ``"dots"``
+    checkpoints the blocks' segments instead, and ``"none"`` nothing."""
+    if cfg.remat not in ("none", "dots", "full"):
         raise ValueError(f"remat must be none|dots|full, got {cfg.remat!r}")
+    if cfg.remat != "full":
+        return fn
     # the forward draws no random numbers, so no RNG state needs replaying
-    kw = {}
-    if cfg.remat == "dots":
-        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _save_dots)
-    return functools.partial(checkpoint, fn, use_reentrant=False, preserve_rng_state=False, **kw)
+    return functools.partial(checkpoint, fn, use_reentrant=False, preserve_rng_state=False)
 
 
 def _run_stage_train(stage_params, pattern, repeats: int, x, cfg: ModelConfig, aux):
+    """The stage's layers in training: ``(x, aux loss)``, the loss a
+    Python ``0.0`` while no ``moe`` block has added to it."""
+    if cfg.remat == "dots":
+        aux = dict(aux, remat_segments=True)
+
     def body(x, lp):
+        aloss = 0.0
         for pi, kind in enumerate(pattern):
-            x, _ = apply_block(kind, lp[pi], x, cfg, "train", aux=aux)
-        return x
+            x, _, a = apply_block(kind, lp[pi], x, cfg, "train", aux=aux)
+            aloss = aloss + a
+        return x, aloss
 
     body = _remat_wrap(body, cfg)
+    aloss = 0.0
     for lp in _unstack(stage_params, repeats):
-        x = body(x, lp)
-    return x
+        x, a = body(x, lp)
+        aloss = aloss + a
+    return x, aloss
 
 
 # --------------------------------------------------------------- forward
@@ -162,8 +185,9 @@ def forward_hidden(cfg: ModelConfig, params, tokens: torch.Tensor, mode: str,
     ``mode='prefill'``: every cache leaf stacked (L, B, ...).
     ``mode='decode'``: tokens (B, 1) at position ``pos``, one for the
     batch (a 0-d tensor) or one per row (B,); the caches' leaves are
-    updated in place and returned.  The aux loss is zero: only ``moe``
-    blocks add to it, and the port does not run them."""
+    updated in place and returned.  The aux loss (an f32 scalar) sums
+    the ``moe`` blocks' load-balancing losses in training; it is zero
+    in prefill and decode, whose callers drop it."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode must be train|prefill|decode, got {mode!r}")
     b, s = tokens.shape
@@ -175,7 +199,8 @@ def forward_hidden(cfg: ModelConfig, params, tokens: torch.Tensor, mode: str,
     for si, (pattern, repeats) in enumerate(cfg.stages):
         sp = params["stages"][si]
         if mode == "train":
-            x = _run_stage_train(sp, pattern, repeats, x, cfg, aux)
+            x, a = _run_stage_train(sp, pattern, repeats, x, cfg, aux)
+            aloss = aloss + a
             continue
         per_layer = []
         for i in range(repeats):
@@ -184,8 +209,8 @@ def forward_hidden(cfg: ModelConfig, params, tokens: torch.Tensor, mode: str,
                 cache = None
                 if mode == "decode":
                     cache = _layer(caches["stages"][si][pi], i)
-                x, c = apply_block(kind, _layer(sp[pi], i), x, cfg, mode,
-                                   cache=cache, pos=pos, aux=aux)
+                x, c, _ = apply_block(kind, _layer(sp[pi], i), x, cfg, mode,
+                                      cache=cache, pos=pos, aux=aux)
                 out.append(c)
             per_layer.append(out)
         if mode == "prefill":
@@ -267,7 +292,7 @@ def decode_step(cfg: ModelConfig, params, cache, tokens: torch.Tensor):
 
 
 def extend_cache(cfg: ModelConfig, cache, extra: int):
-    """Pad the ``attn`` K/V capacity of a prefill cache by ``extra``
+    """Pad the ``attn`` and ``moe`` K/V capacity of a prefill cache by ``extra``
     positions (new leaves); local-attention rings and recurrent state
     leaves are untouched.  Stacked leaves are (L, B, T, K, D)."""
     stages = []
@@ -275,7 +300,7 @@ def extend_cache(cfg: ModelConfig, cache, extra: int):
         per_pos = []
         for pi, kind in enumerate(pattern):
             c = cache["stages"][si][pi]
-            if kind == "attn":
+            if kind in ("attn", "moe"):
                 c = {key: torch.nn.functional.pad(x, (0, 0, 0, 0, 0, extra))
                      for key, x in c.items()}
             per_pos.append(c)
@@ -308,7 +333,7 @@ def write_prefill_slot(cfg: ModelConfig, arena, slot: int, pre):
     """
     for si, (pattern, _) in enumerate(cfg.stages):
         for pi, kind in enumerate(pattern):
-            if kind != "attn":  # the engine serves attention blocks only
+            if kind not in ("attn", "moe"):  # the engine serves these kinds only
                 continue
             a, p = arena["stages"][si][pi], pre["stages"][si][pi]
             for key in ("k", "v"):

@@ -82,10 +82,6 @@ class ServeEngine:
                         f"got {kind!r} (recurrent state / local rings would "
                         "carry padded-prefill junk)"
                     )
-                if kind == "moe":
-                    raise NotImplementedError(
-                        "moe blocks are servable but not ported yet"
-                    )
         self.cfg = cfg
         self.params = params
         self.device = params["embed"].device

@@ -78,6 +78,27 @@ def test_flash_attention_wgmma_on_card(cuda, s, t, d, group):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("s", [64, 128, 200])
+@pytest.mark.parametrize("h,kh", [(16, 16), (24, 8), (48, 8), (32, 8)])
+def test_flash_attention_at_the_copied_configs_heads_on_card(cuda, h, kh, s, dt):
+    """K4 at the heads of qwen2-moe-a2.7b (16/16, group 1), phi4-mini-3.8b
+    (24/8, group 3: bf16 on the CUDA-core kernel, 3 does not divide 64),
+    dbrx-132b (48/8, group 6, likewise) and minitron-8b (32/8), D 128."""
+    route = ops._attention_kernel(dt, 128, h // kh)
+    assert route == ("wgmma" if dt == torch.bfloat16 and 64 % (h // kh) == 0 else "cuda_core")
+    g = torch.Generator().manual_seed(s + h)
+    q, k, v = (torch.randn(1, s, n, 128, generator=g).to(cuda, dt) for n in (h, kh, kh))
+    ops.reset_launch_counts()
+    for causal in (True, False):
+        got = ops.flash_attention(q, k, v, causal=causal)
+        want = ref.flash_attention(q, k, v, causal=causal)
+        torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dt], atol=TOL[dt])
+    entry = "repro_torch_flash_attention" + ("_wgmma" if route == "wgmma" else "")
+    assert ops.ENTRY_LAUNCHES == {entry: 2}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", DTYPES)
 def test_flash_decode_kernel_on_card(cuda, dt):
     g = torch.Generator().manual_seed(1)
     c = 160
@@ -99,12 +120,13 @@ def _decode_curs(t):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dt", DTYPES)
 @pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("group", [1, 4, 8, 16])
+@pytest.mark.parametrize("group", [1, 3, 4, 6, 8, 16])
 @pytest.mark.parametrize("t", [1, 32, 33, 160, 4096])
 def test_flash_decode_sweep_on_card(cuda, t, group, d, dt):
     """Both decode kernels against the plain version over arena lengths,
-    groups, head dims and cur at every split boundary; one launch a call,
-    bf16 on the cluster kernel."""
+    groups (3 and 6: phi4-mini-3.8b's and dbrx-132b's), head dims and cur
+    at every split boundary; one launch a call, bf16 on the cluster
+    kernel."""
     curs = _decode_curs(t)
     b, kh = len(curs), 2
     g = torch.Generator(device=cuda).manual_seed(t + group + d)

@@ -119,8 +119,8 @@ def test_submit_validates_against_arena(cfg, params):
 def test_engine_refuses_unservable_and_unported(cfg, params):
     with pytest.raises(ValueError, match="local_attn"):
         _engine(cfg.replace(stages=((("attn", "local_attn"), 1),)), params)
-    with pytest.raises(NotImplementedError, match="moe"):
-        _engine(cfg.replace(stages=((("moe",), 1),)), params)
+    with pytest.raises(ValueError, match="mlstm"):  # not servable, and not ported
+        _engine(cfg.replace(stages=((("mlstm",), 1),)), params)
 
 
 # ------------------------------------------- engine: one arena, forever

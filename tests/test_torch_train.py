@@ -58,6 +58,10 @@ from repro_torch.utils.tree import (
 )
 
 VOCAB, SEQ, RECORDS, BATCH = 128, 32, 32, 4
+# the matrix products: every ``@`` and ``einsum`` of a period, batched ones
+# included, as ``checkpoint_dots`` keeps every ``dot_general``
+_DOT_OPS = frozenset((torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                      torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default))
 
 
 def _jax_np(tree):
@@ -176,7 +180,7 @@ def test_step_runs_the_scan_per_rglru_layer(pair, monkeypatch, remat, fwd_per_la
 
 
 def test_dots_remat_matches_jax_checkpoint_dots(pair):
-    """``remat="dots"`` (the selective-checkpoint policy) against JAX's
+    """``remat="dots"`` (the checkpointed segments between products) against JAX's
     ``jax.grad`` under ``checkpoint_dots``: the loss to 1e-5, each gradient
     leaf to 1e-4 of its largest entry."""
     jcfg, jparams, tcfg, tparams = pair
@@ -199,7 +203,7 @@ class _DotCounter(TorchDispatchMode):
         self.n = 0
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        if func in tm._DOT_OPS:
+        if func in _DOT_OPS:
             self.n += 1
         return func(*args, **(kwargs or {}))
 
