@@ -12,10 +12,12 @@
    cuobjdump, else PTX); fails if those kernels spill or lack them.
 3. Holds each kernel against its plain PyTorch version on the card:
    the attention kernels in bf16 (the tensor-core kernel) and f32 (the
-   CUDA-core kernel) at the serving path's shapes plus ragged ones;
-   ``flash_decode`` (bf16 D 64/128: the split-KV cluster kernel; f32: the
-   tile kernel) at the serving shape, and at T = 1, 32, 33, 160 and 4,096
-   with groups 1/4/8/16, head dims 64 and 128, ``cur`` at 0, at both sides
+   CUDA-core kernel) at the serving path's shapes plus ragged ones, and at
+   stablelm-12b's heads (32/8) at head dim 160;
+   ``flash_decode`` (bf16 D 64/128/160: the split-KV cluster kernel; f32:
+   the tile kernel) at the serving shape (D 128 and 160), and at T = 1,
+   32, 33, 160 and 4,096 with groups 1/3/4/6/8/16, head dims 64, 128 and
+   160, ``cur`` at 0, at both sides
    of every 64-key tile edge (every split boundary), T-1, T and past T,
    and B = 1; ``flash_decode`` at head dim 256 (bf16, the cluster
    kernel) at recurrentgemma-2b's ring (q (4,10,256), caches
@@ -27,7 +29,9 @@
    and one PyTorch library call (``scaled_dot_product_attention``, a
    yardstick only: the port never calls it) and computes the least time
    the card could take; ``flash_attention`` also at granite-3-8b's
-   4,096-token context (the row's ``context_4096``).
+   4,096-token context (the row's ``context_4096``); both at head dim
+   160 (the rows' ``head_dim_160``: K4 at stablelm-12b's 128-token prompt
+   in bf16 and f32, K6 at the serving shape in bf16).
 4. Holds the port's model on the card against the same model on the CPU
    (plain kernel versions) at smoke size, in float32; and ``LinearSVM``
    likewise, a few steps on one dense batch at epsilon's width.
@@ -100,8 +104,9 @@
    step, the summary's ``cache`` and ``drift`` blocks, the drift report
    within its tolerances; then profiles two steady steps (device time by
    kernel, busy share, peak memory) under ``remat="dots"`` and again
-   under ``"full"``, their step times side by side; each peak must stay
-   5 GiB under the card's memory.
+   under ``"full"``, their step times and peaks side by side; each peak
+   must stay 5 GiB under the card's memory (``"dots"`` saves no bf16
+   weight cast: the backward casts the weights again).
 12. Prefills recurrentgemma-2b at full width and depth (4 x 4,096
    tokens, through ``make_prefill_step``) and decodes 64 greedy steps
    past it (``make_decode_step``: RG-LRU state caches, 2,048-slot
@@ -128,6 +133,13 @@
    against teacher-forced decode in f32 and bf16 (K4 and K6 at groups 3,
    4 and 6).  The kernel checks of step 3 also run K4 at these configs'
    heads and K6 at groups 3 and 6.
+   Serves stablelm-12b at full width and depth (40 ``attn`` layers, GQA
+   32/8 at head dim 160; 12,142,924,800 parameters in f32) through the
+   serving launcher with step 5's checks, every K4 launch on the
+   tensor-core kernel and every K6 launch on the cluster kernel at D 160;
+   profiles its steady decode (casts, GEMMs, ``flash_decode``); and
+   checks its prefill against teacher-forced decode at full depth in f32
+   (1e-3, K4 and K6 on their f32 kernels at D 160) and bf16 (5e-2).
 14. Prints ``{"kernels": [...]}``, then ``{"ok": true, "device": ...}`` as
    the last line.  Any failed check exits non-zero before those lines.
 """
@@ -197,6 +209,8 @@ DECODE_GROUPS = (1, 3, 4, 6, 8, 16)  # 3: phi4-mini-3.8b's, 6: dbrx-132b's
 # 128: qwen2-moe-a2.7b (group 1, the tensor cores), phi4-mini-3.8b (group 3)
 # and dbrx-132b (group 6), whose bf16 groups do not divide 64: CUDA cores
 PREFILL_HEADS = ((16, 16), (24, 8), (48, 8))
+# stablelm-12b's heads: 32 query heads on 8 KV heads at head dim 160
+STABLELM_ARCH, STABLELM_HEADS, STABLELM_D = "stablelm-12b", (32, 8), 160
 
 LONG_CONTEXT = 4096  # granite-3-8b's context: flash_attention's second timed shape
 
@@ -227,7 +241,8 @@ MOE_TRAIN_LAYERS, MOE_TRAIN_SEQ, MOE_TRAIN_STEPS = 4, 4096, 8
 # the copied configs' prefill against teacher-forced decode, bf16: (arch,
 # layers kept or None for the full depth); dbrx-132b's 40 layers hold 13 GB
 # of f32 weights each
-COPIED_CHECKS = (("minitron-8b", None), ("phi4-mini-3.8b", None), ("dbrx-132b", 2))
+COPIED_CHECKS = (("minitron-8b", None), ("phi4-mini-3.8b", None), ("dbrx-132b", 2),
+                 (STABLELM_ARCH, None))
 COPIED_TOKENS = 64
 
 SERVE_ARGS = ["--arch", "granite-3-8b", "--serve-mode", "continuous",
@@ -242,6 +257,7 @@ SERVE_TIER_FLAGS = ["--cache-mb", str(SERVE_CACHE_RECORDS * 68 / 2**20), "--num-
                     "--features-per-request", str(SERVE_FEATURES_PER_REQUEST),
                     "--zipf-alpha", "1.1", "--eviction-policy", "belady"]
 MOE_SERVE_ARGS = ["--arch", MOE_ARCH] + SERVE_ARGS[2:]
+STABLELM_SERVE_ARGS = ["--arch", STABLELM_ARCH] + SERVE_ARGS[2:]
 
 
 class SmokeFailure(RuntimeError):
@@ -308,12 +324,16 @@ def time_ms(fns, n=50, rounds=3):
 # the kernels redesigned for Hopper (mangled-name fragments) and the
 # instructions that show they use the tensor cores and bulk copies: SASS
 # from cuobjdump where the toolkit has it, else PTX from nvcc -ptx
-NEW_KERNELS = ("fa_wgmma_kernel", "gather_bulk_kernel", "gather_staged_kernel",
-               "fd_cluster_kernel", "fd_cluster_kernelILi256E", "scan_ring_kernel",
-               "gather_tables_kernel", "csr_dot_kernel")
+NEW_KERNELS = ("fa_wgmma_kernel", "fa_wgmma_kernelILi160E", "gather_bulk_kernel",
+               "gather_staged_kernel", "fd_cluster_kernel", "fd_cluster_kernelILi256E",
+               "fd_cluster_kernel_1smILi160E", "scan_ring_kernel", "gather_tables_kernel",
+               "csr_dot_kernel")
 SASS_OPS = {"fa_wgmma_kernel": ("HGMMA", "UTMALDG"), "gather_bulk_kernel": ("UBLKCP",),
             "fd_cluster_kernel": ("LDGSTS", "HMMA"), "scan_ring_kernel": ("UTMALDG", "UTMASTG"),
-            "gather_tables_kernel": ("LDC",)}
+            "gather_tables_kernel": ("LDC",),
+            # the head dim 160 instantiations on their own
+            "fa_wgmma_kernelILi160E": ("HGMMA", "UTMALDG"),
+            "fd_cluster_kernel_1smILi160E": ("LDGSTS", "HMMA")}
 PTX_OPS = {"flash_attention_wgmma.cu": ("wgmma.mma_async", "cp.async.bulk.tensor"),
            "batch_gather.cu": ("cp.async.bulk.shared", "cp.async.bulk.global"),
            "flash_decode_cluster.cu": ("cp.async.cg.shared.global", "mapa",
@@ -388,83 +408,99 @@ def kernel_phase(dev):
 
     rows = []
     print("flash_attention vs plain version (bf16: tensor-core kernel; f32: CUDA-core kernel):")
+    heads = [((32, 8), 128)] + [(hk, 128) for hk in PREFILL_HEADS] + [(STABLELM_HEADS, STABLELM_D)]
     for dt in (torch.bfloat16, torch.float32):
-        for (h, kh), (p, causal) in itertools.product(((32, 8),) + PREFILL_HEADS,
-                                                      ((128, True), (200, True), (200, False))):
-            q, k, v = randn(1, p, h, 128, dt=dt), randn(1, p, kh, 128, dt=dt), randn(1, p, kh, 128, dt=dt)
+        for ((h, kh), d), (p, causal) in itertools.product(
+                heads, ((128, True), (200, True), (200, False))):
+            q, k, v = randn(1, p, h, d, dt=dt), randn(1, p, kh, d, dt=dt), randn(1, p, kh, d, dt=dt)
             got = ops.flash_attention(q, k, v, causal)
             torch.cuda.synchronize()
             compare(f"{dt} q{tuple(q.shape)} kv{tuple(k.shape)} causal={causal} "
-                    f"({ops._attention_kernel(dt, 128, h // kh)})",
+                    f"({ops._attention_kernel(dt, d, h // kh)})",
                     got, ref.flash_attention(q, k, v, causal), TOL[str(dt)])
 
-    # the prefill path's shape and dtype: one admitted 128-token prompt;
-    # then granite-3-8b's full 4,096-token context, where the tensor cores show
-    dt = torch.bfloat16
-    timed = {}
-    for s in (128, LONG_CONTEXT):
-        q, k, v = randn(1, s, 32, 128, dt=dt), randn(1, s, 8, 128, dt=dt), randn(1, s, 8, 128, dt=dt)
-        err = compare(f"timed inputs q{tuple(q.shape)} kv{tuple(k.shape)} causal=True",
-                      ops.flash_attention(q, k, v), ref.flash_attention(q, k, v), 2e-2)
+    def timed_prefill(s, h, kh, d, dt, n):
+        """Kernel, plain version and SDPA at one causal shape, beside the bound."""
+        q, k, v = randn(1, s, h, d, dt=dt), randn(1, s, kh, d, dt=dt), randn(1, s, kh, d, dt=dt)
+        err = compare(f"timed inputs {dt} q{tuple(q.shape)} kv{tuple(k.shape)} causal=True "
+                      f"({ops._attention_kernel(dt, d, h // kh)})",
+                      ops.flash_attention(q, k, v), ref.flash_attention(q, k, v), TOL[str(dt)])
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         t, eager = time_ms({
             "kernel": lambda: ops.flash_attention(q, k, v),
             "plain": lambda: ref.flash_attention(q, k, v),
             "library": lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                                               enable_gqa=True),
-        }, n=50 if s == 128 else 10)
-        h, d = q.shape[2], q.shape[3]
+        }, n=n)
         pairs = s * (s + 1) // 2
-        nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
-        timed[s] = dict(max_abs_err=err, ms=t["kernel"], plain_ms=t["plain"],
-                        **bound(nbytes, 4 * pairs * h * d, BF16_FLOPS), library_ms=t["library"])
-        print(f"  S = T = {s}: device ms per call: {t}; eager ms per call: {eager}; bound "
-              f"{timed[s]['bound_ms']:.6f} ms ({timed[s]['bound_by']}); kernel at "
-              f"{timed[s]['bound_ms'] / t['kernel']:.3f} of it, SDPA at "
-              f"{timed[s]['bound_ms'] / t['library']:.3f}")
-        del q, k, v, qt, kt, vt
+        nbytes = q.element_size() * (q.numel() + k.numel() + v.numel() + q.numel())
+        peak = BF16_FLOPS if dt == torch.bfloat16 else F32_FLOPS
+        out = dict(max_abs_err=err, ms=t["kernel"], plain_ms=t["plain"],
+                   **bound(nbytes, 4 * pairs * h * d, peak), library_ms=t["library"])
+        print(f"  {dt} S = T = {s}, D = {d}: device ms per call: {t}; eager ms per call: "
+              f"{eager}; bound {out['bound_ms']:.6f} ms ({out['bound_by']}); kernel at "
+              f"{out['bound_ms'] / t['kernel']:.3f} of it, SDPA at "
+              f"{out['bound_ms'] / t['library']:.3f}")
+        return out
+
+    # the prefill path's shape and dtype: one admitted 128-token prompt;
+    # then granite-3-8b's full 4,096-token context, where the tensor cores
+    # show; then stablelm-12b's prompt at head dim 160 in both dtypes
+    timed = {s: timed_prefill(s, 32, 8, 128, torch.bfloat16, 50 if s == 128 else 10)
+             for s in (128, LONG_CONTEXT)}
+    wide = {str(dt).removeprefix("torch."): timed_prefill(128, *STABLELM_HEADS, STABLELM_D, dt, 50)
+            for dt in (torch.bfloat16, torch.float32)}
     rows.append(dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
         replaces="src/repro/kernels/flash_attention.py:104", **timed[128],
-        context_4096=timed[LONG_CONTEXT],
+        context_4096=timed[LONG_CONTEXT], head_dim_160=wide,
     ))
 
-    print("flash_decode vs plain version (bf16 D 64/128: cluster kernel; f32: tile kernel):")
-    check(ops._decode_kernel(torch.bfloat16, 128) == "cluster",
-          "the serving path's decode does not route to the cluster kernel")
+    print("flash_decode vs plain version (bf16 D 64/128/160: cluster kernel; f32: tile kernel):")
+    for d in (128, STABLELM_D):
+        check(ops._decode_kernel(torch.bfloat16, d) == "cluster",
+              f"the serving path's decode at D {d} does not route to the cluster kernel")
     c = 160  # the arena: prompt capacity 128 + 32 generated
     cur = torch.tensor([0, 17, 31, 32, 100, c - 1, c, c + 11], dtype=torch.int32, device=dev)
-    for dt in (torch.bfloat16, torch.float32):
-        q, kc, vc = randn(8, 32, 128, dt=dt), randn(8, c, 8, 128, dt=dt), randn(8, c, 8, 128, dt=dt)
+    for dt, d in itertools.product((torch.bfloat16, torch.float32), (128, STABLELM_D)):
+        q, kc, vc = randn(8, 32, d, dt=dt), randn(8, c, 8, d, dt=dt), randn(8, c, 8, d, dt=dt)
         got = ops.flash_decode(q, kc, vc, cur)
         torch.cuda.synchronize()
         compare(f"{dt} q{tuple(q.shape)} cache{tuple(kc.shape)} cur={cur.tolist()}",
                 got, ref.flash_decode(q, kc, vc, cur), TOL[str(dt)])
     decode_sweep(dev)
-    dt = torch.bfloat16
-    q, kc, vc = randn(8, 32, 128, dt=dt), randn(8, c, 8, 128, dt=dt), randn(8, c, 8, 128, dt=dt)
-    err = compare("timed inputs", ops.flash_decode(q, kc, vc, cur), ref.flash_decode(q, kc, vc, cur), 2e-2)
-    q4 = q[:, :, None]                                     # (B,H,1,D)
-    kt, vt = (x.transpose(1, 2).contiguous() for x in (kc, vc))  # (B,K,T,D)
-    mask = (torch.arange(c, device=dev)[None, :] <= cur[:, None])[:, None, None, :]
-    t, eager = time_ms({
-        "kernel": lambda: ops.flash_decode(q, kc, vc, cur),
-        "plain": lambda: ref.flash_decode(q, kc, vc, cur),
-        "library": lambda: F.scaled_dot_product_attention(q4, kt, vt, attn_mask=mask, enable_gqa=True),
-    })
-    used = int((cur.clamp(max=c - 1) + 1).sum())  # cache positions read
-    kh, d, h = kc.shape[2], kc.shape[3], q.shape[1]
-    nbytes = 2 * (2 * q.numel() + 2 * used * kh * d) + 4 * cur.numel()
+
+    def timed_decode(d):
+        """Kernel, plain version and SDPA at the serving shape, bf16, beside the bound."""
+        dt = torch.bfloat16
+        q, kc, vc = randn(8, 32, d, dt=dt), randn(8, c, 8, d, dt=dt), randn(8, c, 8, d, dt=dt)
+        err = compare(f"timed inputs D = {d}", ops.flash_decode(q, kc, vc, cur),
+                      ref.flash_decode(q, kc, vc, cur), 2e-2)
+        q4 = q[:, :, None]                                     # (B,H,1,D)
+        kt, vt = (x.transpose(1, 2).contiguous() for x in (kc, vc))  # (B,K,T,D)
+        mask = (torch.arange(c, device=dev)[None, :] <= cur[:, None])[:, None, None, :]
+        t, eager = time_ms({
+            "kernel": lambda: ops.flash_decode(q, kc, vc, cur),
+            "plain": lambda: ref.flash_decode(q, kc, vc, cur),
+            "library": lambda: F.scaled_dot_product_attention(q4, kt, vt, attn_mask=mask,
+                                                              enable_gqa=True),
+        })
+        used = int((cur.clamp(max=c - 1) + 1).sum())  # cache positions read
+        kh, h = kc.shape[2], q.shape[1]
+        nbytes = 2 * (2 * q.numel() + 2 * used * kh * d) + 4 * cur.numel()
+        out = dict(max_abs_err=err, ms=t["kernel"], plain_ms=t["plain"],
+                   **bound(nbytes, 4 * used * h * d, BF16_FLOPS), library_ms=t["library"])
+        print(f"  D = {d}: device ms per call: {t}; eager ms per call: {eager}; "
+              f"bound {out['bound_ms']:.6f} ms ({out['bound_by']})")
+        return out
+
     rows.append(dict(
         name="flash_decode", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_decode_cluster.cu",
-        replaces="src/repro/kernels/flash_decode.py:91",
-        max_abs_err=err, ms=t["kernel"], plain_ms=t["plain"],
-        **bound(nbytes, 4 * used * h * d, BF16_FLOPS), library_ms=t["library"],
+        replaces="src/repro/kernels/flash_decode.py:91", **timed_decode(128),
+        head_dim_160=timed_decode(STABLELM_D),
     ))
-    print(f"  device ms per call: {t}; eager ms per call: {eager}; "
-          f"bound {rows[-1]['bound_ms']:.6f} ms ({rows[-1]['bound_by']})")
 
     print("csr_dot vs plain version (bit-exact, both gathers):")
     gg = torch.Generator(device=dev).manual_seed(1)
@@ -507,7 +543,7 @@ def decode_cases():
 
 def decode_sweep(dev):
     """flash_decode against its plain version over DECODE_LENGTHS x
-    DECODE_GROUPS x head dims 64/128 x both dtypes (two KV heads), and at
+    DECODE_GROUPS x head dims 64/128/160 x both dtypes (two KV heads), and at
     B = 1 (the fewest blocks) at the serving widths; one line per length."""
     from repro_torch.kernels import ops, ref
 
@@ -515,7 +551,7 @@ def decode_sweep(dev):
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     cases = 0
     for dt in (torch.bfloat16, torch.float32):
-        for d in (64, 128):
+        for d in (64, 128, STABLELM_D):
             for t, curs in decode_cases():
                 b, kh = len(curs), 2
                 cur = torch.tensor(curs, dtype=torch.int32, device=dev)
@@ -928,8 +964,9 @@ def _check_feature_tier(report):
 def serve_run(args, extra_check=None):
     """One run of the serving launcher at the full width and depth of
     ``args``' arch, its launches counted from 0: every request done, no
-    slot leak, one K4 launch a layer per prefill and one K6 launch (on the
-    cluster kernel) a layer per decode step, the warmup's included.
+    slot leak, one K4 launch a layer per prefill (on the kernel
+    ``ops._attention_kernel`` routes the config to) and one K6 launch (on
+    the cluster kernel) a layer per decode step, the warmup's included.
     Returns the launches and the report."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
@@ -943,7 +980,8 @@ def serve_run(args, extra_check=None):
     launches = dict(ops.LAUNCHES)
     entries = dict(ops.ENTRY_LAUNCHES)
     print(f"  serve run incl. init {time.perf_counter() - t0:.1f} s; launches {launches}")
-    layers = get_config(arch).num_layers
+    cfg = get_config(arch)
+    layers = cfg.num_layers
     check(report["arch"] == arch, "not the full-width config")
     check(report["requests"] == 16, f"{report['requests']} of 16 requests completed")
     check(report["slot_leaks"] == 0, f"{report['slot_leaks']} slots leaked")
@@ -955,6 +993,11 @@ def serve_run(args, extra_check=None):
           f"flash_decode launched {launches['flash_decode']} times, want {want_fd}")
     entry = entries.get("repro_torch_flash_decode_cluster", 0)
     check(entry == want_fd, f"the cluster kernel ran {entry} of {want_fd} decode launches")
+    fa_entry = "repro_torch_flash_attention" + (
+        "_wgmma" if ops._attention_kernel(cfg.compute_dtype, cfg.kq_dim,
+                                          cfg.num_heads // cfg.num_kv_heads) == "wgmma" else "")
+    entry = entries.get(fa_entry, 0)
+    check(entry == want_fa, f"{fa_entry} ran {entry} of {want_fa} prefill launches")
     print(f"  launches by entry point {entries}")
     if extra_check is not None:
         extra_check(report)
@@ -1010,9 +1053,30 @@ def profile_phase(dev, arch="granite-3-8b", params=None, steps=5):
               f"{e.count // steps:5d} calls/step  {e.key[:100]}")
     if cfg.moe is not None:
         split = _moe_classes(prof, cfg.moe.num_experts)
-        print("  device ms/step by operation: " + ", ".join(
-            f"{c} {v / steps / 1e3:.2f} ({v / max(device_us, 1):.3f})" for c, v in split.items()))
+    else:
+        split = _dense_classes(prof, events)
+    print("  device ms/step by operation: " + ", ".join(
+        f"{c} {v / steps / 1e3:.2f} ({v / max(device_us, 1):.3f})" for c, v in split.items()))
     return eng
+
+
+def _dense_classes(prof, events):
+    """Device microseconds of a dense decode step by what launched them:
+    the f32 -> bf16 weight casts (``aten::_to_copy``), the matrix products
+    (``aten::matmul``: projections, FFN, logits) and ``flash_decode``
+    (the cluster kernel's own device time)."""
+    from torch.autograd import DeviceType
+
+    casts = matmul = 0.0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CPU:
+            continue
+        if e.key == "aten::_to_copy":
+            casts += e.device_time_total
+        elif e.key == "aten::matmul":
+            matmul += e.device_time_total
+    decode = sum(e.self_device_time_total for e in events if "fd_cluster" in e.key)
+    return {"casts": casts, "GEMMs": matmul, "flash_decode": decode}
 
 
 def _moe_classes(prof, experts):
@@ -1551,7 +1615,7 @@ def train_profile_phase(dev, steps=2):
     classes = {"GEMM": ("nvjet", "gemm", "cutlass", "xmma"), "rglru_scan": ("rglru_scan", "scan_ring"),
                "softmax/reduce": ("softmax", "reduce")}
     card_gib = torch.cuda.get_device_properties(dev).total_memory / 2**30
-    step_ms = {}
+    step_ms, peaks = {}, {}
     for remat in ("dots", "full"):
         gc.collect()
         torch.cuda.empty_cache()
@@ -1583,7 +1647,7 @@ def train_profile_phase(dev, steps=2):
         peak = torch.cuda.max_memory_allocated(dev) / 2**30
         check(peak <= card_gib - 5, f"remat={remat!r} peaks at {peak:.2f} of the card's "
               f"{card_gib:.2f} GiB, less than 5 GiB under it")
-        step_ms[remat] = 1e3 * plain_wall / steps
+        step_ms[remat], peaks[remat] = 1e3 * plain_wall / steps, peak
         events = [e for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
         check(bool(events), "the profiler recorded no device activity")
@@ -1609,7 +1673,8 @@ def train_profile_phase(dev, steps=2):
                   f"{e.count // steps:5d} calls/step  {e.key[:100]}")
         del state, out, prof
     print(f"  remat 'dots' {step_ms['dots']:.1f} against 'full' {step_ms['full']:.1f} ms a step "
-          f"(host clock, this call): ratio {step_ms['dots'] / step_ms['full']:.3f}")
+          f"(host clock, this call): ratio {step_ms['dots'] / step_ms['full']:.3f}; peak memory "
+          f"{peaks['dots']:.2f} against {peaks['full']:.2f} GiB")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1893,6 +1958,38 @@ def moe_serve_phase(dev):
     return launches
 
 
+def stablelm_serve_phase(dev):
+    """stablelm-12b at published width and depth (40 ``attn`` layers,
+    d_model 5,120, GQA 32/8 at head dim 160, f32 storage, bf16 compute)
+    through the serving launcher (``STABLELM_SERVE_ARGS``), with
+    ``serve_run``'s checks: every K4 launch on the tensor-core kernel and
+    every K6 launch on the cluster kernel, at D 160; then its steady
+    decode profiled (``profile_phase``: casts, GEMMs, ``flash_decode``).
+    Returns the serve run's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+
+    _free()
+    cfg = get_config(STABLELM_ARCH)
+    check(cfg.kq_dim == STABLELM_D and (cfg.num_heads, cfg.num_kv_heads) == STABLELM_HEADS,
+          f"{STABLELM_ARCH}: heads {cfg.num_heads}/{cfg.num_kv_heads} at D {cfg.kq_dim}")
+    check(ops._attention_kernel(cfg.compute_dtype, cfg.kq_dim, 4) == "wgmma"
+          and ops._decode_kernel(cfg.compute_dtype, cfg.kq_dim) == "cluster",
+          f"{STABLELM_ARCH} does not route to the tensor-core K4 and the cluster K6")
+    launches, report = serve_run(STABLELM_SERVE_ARGS)
+    print(f"  {STABLELM_ARCH}: {report['tokens_per_s']} tokens/s, decode "
+          f"{report['decode_ms_per_step']:.2f} ms a step, prefill "
+          f"{report['prefill_ms_per_request']:.2f} ms a request, TTFT p50/p99 "
+          f"{report['ttft_p50_steps']}/{report['ttft_p99_steps']} steps, peak memory "
+          f"{report['peak_memory_gib']:.2f} GiB")
+    del report
+    _free()
+    eng = profile_phase(dev, STABLELM_ARCH)
+    del eng
+    _free()
+    return launches
+
+
 class _Routes:
     """Records the expert ids of every MoE routing in a scope (the port's
     ``layers.moe._route``), as ``_EventTimed`` brackets ``csr_dot``."""
@@ -2107,7 +2204,7 @@ def copied_configs_phase(dev):
     an empty cache (``_dtype_checks``): f32 at F32_LOGITS_TOL, bf16 at
     BF16_LOGITS_TOL (dbrx's bf16 unheld, its routings part as
     qwen2-moe's).  K4 and K6 at groups 4 (minitron-8b), 3 (phi4-mini-3.8b)
-    and 6 (dbrx-132b), D 128."""
+    and 6 (dbrx-132b), D 128, and at group 4, D 160 (stablelm-12b)."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -2194,18 +2291,24 @@ def main() -> int:
     moe_launches = moe_serve_phase(dev)
     moe_checks_phase(dev)
     moe_train_phase(dev)
+    print(f"MoE phases {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    stablelm_launches = stablelm_serve_phase(dev)
+    print(f"{STABLELM_ARCH} serving phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     copied_configs_phase(dev)
-    print(f"MoE and copied-config phases {time.perf_counter() - t0:.1f} s")
+    print(f"copied-config phase {time.perf_counter() - t0:.1f} s")
     for row in rows:
         if row["name"] == "flash_decode":
             row["head_dim_256"] = dict(wide_decode, launches=rg_launches["flash_decode"])
         if row["name"] in ("flash_attention", "flash_decode"):
             row["qwen2_moe_serve_launches"] = moe_launches[row["name"]]
+            row["head_dim_160"]["stablelm_serve_launches"] = stablelm_launches[row["name"]]
     for name in ("rglru_scan", "rglru_scan_bwd"):
         rows.append(dict(scans[name], launches=train_launches[name]))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms", "context_4096", "head_dim_256",
-            "qwen2_moe_serve_launches", "b1_ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "context_4096", "head_dim_160",
+            "head_dim_256", "qwen2_moe_serve_launches", "b1_ms",
             "device_ids_ms", "device_ids_bound_ms", "bandwidth_ms")
     print(json.dumps({"kernels": [{k: row[k] for k in keys if k in row} for row in rows]}))
     print(json.dumps({"ok": True, "device": {

@@ -18,6 +18,7 @@ _MODULES = {
     "phi4-mini-3.8b": "repro_torch.configs.phi4_mini_3_8b",
     "qwen2-moe-a2.7b": "repro_torch.configs.qwen2_moe_a2_7b",
     "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
+    "stablelm-12b": "repro_torch.configs.stablelm_12b",
 }
 
 ARCH_IDS: List[str] = list(_MODULES)

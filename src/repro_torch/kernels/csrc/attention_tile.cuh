@@ -16,6 +16,13 @@
 // tile issued together, and the next tile's loads are in flight while
 // the block computes on the current one (TileLoader), so a tile costs
 // about one memory latency, not one per element.
+//
+// Everything sized by the head dim is a template on its class MaxD, the
+// largest D a class takes: 128 (D <= 128) or 160 (stablelm-12b's head
+// dim). A call runs the smallest class that holds its D, so the D <= 128
+// calls keep their register and load layout. The block's shared memory
+// (TileSmem: 16 query rows and a K/V tile, f32) is dynamic: 41,088 bytes
+// at 128, 51,328 at 160, above the 48 KB a static array may take.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -23,12 +30,13 @@
 
 namespace repro_torch {
 
-constexpr int kMaxD = 128;             // largest head dim the kernels take
+constexpr int kMaxD = 160;             // largest head dim the kernels take
 constexpr int kTileK = 32;             // keys per staged tile: one per lane
 constexpr int kWarps = 4;              // warps per block
 constexpr int kThreads = kWarps * 32;
 constexpr int kRowsPerWarp = 4;        // query rows a warp carries
-constexpr int kDimsPerLane = kMaxD / 32;
+constexpr int kRowsQ = kWarps * kRowsPerWarp;  // query rows a block stages
+constexpr int kStaticSmem = 48 * 1024; // above it, shared memory must be opted into
 constexpr float kNegInf = -1e30f;      // the TPU kernels' mask value
 constexpr unsigned kFullMask = 0xffffffffu;
 
@@ -99,19 +107,41 @@ __device__ __forceinline__ void load_rows_f32(const T* __restrict__ src,
 
 // Shared-memory tile of one KV head. K rows are padded by one float so
 // that lane j reading ks[j][d] hits bank (j + d) % 32: no conflicts.
+template <int MaxD>
 struct KVTile {
-  float ks[kTileK][kMaxD + 1];
-  float vs[kTileK][kMaxD];
+  float ks[kTileK][MaxD + 1];
+  float vs[kTileK][MaxD];
 };
+
+// A block's shared memory: its query rows (f32, pitch MaxD) and the tile.
+template <int MaxD>
+struct TileSmem {
+  float qs[kRowsQ][MaxD];
+  KVTile<MaxD> tile;
+};
+
+template <int MaxD>
+__device__ __forceinline__ TileSmem<MaxD>& tile_smem() {
+  extern __shared__ __align__(16) unsigned char tile_smem_raw[];
+  return *reinterpret_cast<TileSmem<MaxD>*>(tile_smem_raw);
+}
+
+// Opt a kernel into its TileSmem where that exceeds the static limit.
+template <int MaxD, typename Kernel>
+__host__ __forceinline__ cudaError_t set_tile_smem(Kernel kernel) {
+  if (sizeof(TileSmem<MaxD>) <= kStaticSmem) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)sizeof(TileSmem<MaxD>));
+}
 
 // Register staging of one K/V tile: each thread owns up to kSlots
 // 16-byte vectors of K and of V. load() issues all of a thread's loads
 // back to back (positions at or past t_len read as zero); store() writes
 // them to shared memory after the previous tile's readers are done.
-template <typename T>
+template <typename T, int MaxD>
 struct TileLoader {
   static constexpr int kE = Vec<T>::kElems;
-  static constexpr int kSlots = kTileK * kMaxD / kE / kThreads;
+  static constexpr int kSlots = kTileK * MaxD / kE / kThreads;
   uint4 k[kSlots];
   uint4 v[kSlots];
 
@@ -135,7 +165,7 @@ struct TileLoader {
     }
   }
 
-  __device__ __forceinline__ void store(int d_head, KVTile& tile) const {
+  __device__ __forceinline__ void store(int d_head, KVTile<MaxD>& tile) const {
     const int per_row = d_head / kE;
 #pragma unroll
     for (int s = 0; s < kSlots; ++s) {
@@ -150,20 +180,23 @@ struct TileLoader {
   }
 };
 
+template <int MaxD>
 struct RowState {
+  static constexpr int kDimsPerLane = MaxD / 32;
   float m;
   float l;
   float acc[kDimsPerLane];  // lane owns dims lane + 32 * i
 };
 
-__device__ __forceinline__ void row_init(RowState& st) {
+template <int MaxD>
+__device__ __forceinline__ void row_init(RowState<MaxD>& st) {
   st.m = kNegInf;
   st.l = 0.f;
 #pragma unroll
-  for (int i = 0; i < kDimsPerLane; ++i) st.acc[i] = 0.f;
+  for (int i = 0; i < RowState<MaxD>::kDimsPerLane; ++i) st.acc[i] = 0.f;
 }
 
-// Advance R query rows (f32, shared, pitch kMaxD, starting at q_first)
+// Advance R query rows (f32, shared, pitch MaxD, starting at q_first)
 // over a staged tile. Called by a whole warp (the shuffles need every
 // lane); row r masks keys past limit[r]. The rows run side by side, so
 // each K and V value read from shared memory serves all R rows and the
@@ -171,11 +204,12 @@ __device__ __forceinline__ void row_init(RowState& st) {
 // tile is left exactly as it was (p = 0, corr = 1), provided it saw an
 // unmasked key before, as every real row does at key 0. d_head is a
 // multiple of 8.
-template <typename T, int R>
+template <typename T, int R, int MaxD>
 __device__ __forceinline__ void rows_step(const float* __restrict__ q_first,
-                                          const KVTile& tile, int d_head,
+                                          const KVTile<MaxD>& tile, int d_head,
                                           int t0, const int* limit,
-                                          float scale, RowState* st) {
+                                          float scale, RowState<MaxD>* st) {
+  constexpr int kDimsPerLane = RowState<MaxD>::kDimsPerLane;
   const int lane = threadIdx.x & 31;
   // four partial sums per row: independent chains instead of one of D
   float acc4[R][4];
@@ -189,7 +223,7 @@ __device__ __forceinline__ void rows_step(const float* __restrict__ q_first,
     const float k0 = krow[d], k1 = krow[d + 1], k2 = krow[d + 2], k3 = krow[d + 3];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      const float4 q4 = *reinterpret_cast<const float4*>(q_first + r * kMaxD + d);
+      const float4 q4 = *reinterpret_cast<const float4*>(q_first + r * MaxD + d);
       acc4[r][0] = fmaf(q4.x, k0, acc4[r][0]);
       acc4[r][1] = fmaf(q4.y, k1, acc4[r][1]);
       acc4[r][2] = fmaf(q4.z, k2, acc4[r][2]);
@@ -239,13 +273,13 @@ __device__ __forceinline__ void rows_step(const float* __restrict__ q_first,
 }
 
 // Write acc / max(l, 1e-30) for one row; out points at the row's D values.
-template <typename T>
-__device__ __forceinline__ void row_emit(const RowState& st, int d_head,
+template <typename T, int MaxD>
+__device__ __forceinline__ void row_emit(const RowState<MaxD>& st, int d_head,
                                          T* __restrict__ out) {
   const int lane = threadIdx.x & 31;
   const float l = fmaxf(st.l, 1e-30f);
 #pragma unroll
-  for (int i = 0; i < kDimsPerLane; ++i) {
+  for (int i = 0; i < RowState<MaxD>::kDimsPerLane; ++i) {
     const int d = lane + 32 * i;
     if (d < d_head) out[d] = from_f32<T>(st.acc[i] / l);
   }

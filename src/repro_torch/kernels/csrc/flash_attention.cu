@@ -19,21 +19,22 @@
 // (S, T not multiples of the tiles) are masked here: the serve path's
 // S is the prompt capacity, which can be any length. CUDA-core f32 math:
 // this kernel serves f32 calls and the head dims and groups that
-// flash_attention_wgmma.cu (bf16 on the tensor cores) does not take.
+// flash_attention_wgmma.cu (bf16 on the tensor cores) does not take. Head
+// dims up to 160 (stablelm-12b's), in the head-dim classes of
+// attention_tile.cuh: D <= 128 runs the 128 class, 129..160 the 160 class.
 #include "attention_tile.cuh"
 
 namespace repro_torch {
 
-constexpr int kRowsQ = kWarps * kRowsPerWarp;  // query rows per block
-
-template <typename T>
+template <typename T, int MaxD>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o, int s_len,
                        int t_len, int n_heads, int n_kv_heads, int d_head,
                        int causal, float scale) {
-  __shared__ __align__(16) float qs[kRowsQ][kMaxD];
-  __shared__ KVTile tile;
+  TileSmem<MaxD>& sm = tile_smem<MaxD>();
+  auto& qs = sm.qs;
+  auto& tile = sm.tile;
 
   const int q0 = blockIdx.x * kRowsQ;
   const int h = blockIdx.y;
@@ -44,13 +45,13 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // the tile's query rows q[b, q0 + r, h, :]; rows past S are never read
   load_rows_f32(q + (((long)b * s_len + q0) * n_heads + h) * d_head,
                 (long)n_heads * d_head, min(kRowsQ, s_len - q0), d_head,
-                &qs[0][0], kMaxD);
+                &qs[0][0], MaxD);
 
   const long row_stride = (long)n_kv_heads * d_head;
   const T* kb = k + ((long)b * t_len * n_kv_heads + kvh) * d_head;
   const T* vb = v + ((long)b * t_len * n_kv_heads + kvh) * d_head;
 
-  RowState st[kRowsPerWarp];
+  RowState<MaxD> st[kRowsPerWarp];
   int limit[kRowsPerWarp];
 #pragma unroll
   for (int r = 0; r < kRowsPerWarp; ++r) {
@@ -61,7 +62,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int last_row = min(q0 + kRowsQ, s_len) - 1;
   const int t_end = causal ? min(last_row, t_len - 1) : t_len - 1;
 
-  TileLoader<T> next;
+  TileLoader<T, MaxD> next;
   next.load(kb, vb, row_stride, 0, t_len, d_head);
   for (int t0 = 0; t0 <= t_end; t0 += kTileK) {
     next.store(d_head, tile);
@@ -78,21 +79,38 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int r = 0; r < kRowsPerWarp; ++r) {
     const int s = q0 + warp * kRowsPerWarp + r;
     if (s < s_len) {
-      row_emit<T>(st[r], d_head, o + (((long)b * s_len + s) * n_heads + h) * d_head);
+      row_emit<T, MaxD>(st[r], d_head, o + (((long)b * s_len + s) * n_heads + h) * d_head);
     }
   }
 }
 
-template <typename T>
-static void launch(const void* q, const void* k, const void* v, void* o, int b,
-                   int s_len, int t_len, int n_heads, int n_kv_heads,
-                   int d_head, int causal, cudaStream_t stream) {
+template <typename T, int MaxD>
+static int launch_class(const void* q, const void* k, const void* v, void* o,
+                        int b, int s_len, int t_len, int n_heads,
+                        int n_kv_heads, int d_head, int causal,
+                        cudaStream_t stream) {
+  const cudaError_t err = set_tile_smem<MaxD>(flash_attention_kernel<T, MaxD>);
+  if (err != cudaSuccess) return (int)err;
   const dim3 grid((s_len + kRowsQ - 1) / kRowsQ, n_heads, b);
   const float scale = 1.f / sqrtf((float)d_head);
-  flash_attention_kernel<T><<<grid, kThreads, 0, stream>>>(
+  flash_attention_kernel<T, MaxD><<<grid, kThreads, sizeof(TileSmem<MaxD>), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), s_len, t_len, n_heads,
       n_kv_heads, d_head, causal, scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int launch(const void* q, const void* k, const void* v, void* o, int b,
+                  int s_len, int t_len, int n_heads, int n_kv_heads,
+                  int d_head, int causal, cudaStream_t stream) {
+  if (d_head <= 128)
+    return launch_class<T, 128>(q, k, v, o, b, s_len, t_len, n_heads,
+                                n_kv_heads, d_head, causal, stream);
+  if (d_head <= kMaxD)
+    return launch_class<T, kMaxD>(q, k, v, o, b, s_len, t_len, n_heads,
+                                  n_kv_heads, d_head, causal, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace repro_torch
@@ -106,14 +124,12 @@ extern "C" int repro_torch_flash_attention(const void* q, const void* k,
                                            int causal, int dtype,
                                            void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    repro_torch::launch<float>(q, k, v, o, b, s_len, t_len, n_heads,
-                               n_kv_heads, d_head, causal, st);
-  } else if (dtype == 1) {
-    repro_torch::launch<__nv_bfloat16>(q, k, v, o, b, s_len, t_len, n_heads,
-                                       n_kv_heads, d_head, causal, st);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if (dtype == 0)
+    return repro_torch::launch<float>(q, k, v, o, b, s_len, t_len, n_heads,
+                                      n_kv_heads, d_head, causal, st);
+  if (dtype == 1)
+    return repro_torch::launch<__nv_bfloat16>(q, k, v, o, b, s_len, t_len,
+                                              n_heads, n_kv_heads, d_head,
+                                              causal, st);
+  return (int)cudaErrorInvalidValue;
 }

@@ -1,5 +1,6 @@
 // flash_attention, bf16 on the tensor cores: causal / non-causal GQA
-// attention forward for head dims 64 and 128 and groups H/K that divide 64.
+// attention forward for head dims 64, 128 and 160 (stablelm-12b's) and
+// groups H/K that divide 64.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py
 // (flash_attention, pallas_call at :104) for those calls; f32 calls and
@@ -40,6 +41,13 @@
 // - O += P V: wgmma m64n{D}k16 with P from registers (the S fragment
 //   repacked as bf16 pairs is the A fragment) and V from shared memory,
 //   MN-major (transpose bit; 8,192 bytes between the 64-dim boxes).
+// - Head dim 160: a row is three 64-dim boxes, the tensor map's row is
+//   160 dims, so TMA zero-fills dims 160-191 of the third box of Q, K and
+//   V (and still counts the whole box on the mbarrier). QK^T runs its
+//   D/16 = 10 k-steps; P V runs m64n192 over the three whole boxes (the
+//   zero-filled dims add zero columns), with 96 accumulators a thread, and
+//   only the first 160 columns are written. Shared memory: 5 tiles of 3
+//   boxes, 120 KB.
 // - Output: acc / max(l, 1e-30) as bf16 straight from the registers;
 //   rows past S are not written. TMA zero-fills boxes past S and T, and
 //   the mask and the row guard keep ragged edges exact.
@@ -153,8 +161,44 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t* a, uint64_t db);
+// d (m64n192, f32) += A·B, A (64 x 16) bf16 from registers (four bf16x2
+// a thread), B (16 x 192) bf16 MN-major in shared memory (transpose bit set)
+__device__ __forceinline__ void wgmma_rs_m64n192(float (&d)[96], const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+      "{%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// 64-dim boxes a row of head dim D, and the P V width they cover
+__host__ __device__ constexpr int boxes(int d) { return (d + 63) / 64; }
+__host__ __device__ constexpr int pv_width(int d) { return 64 * boxes(d); }
+
+template <int N>
+__device__ __forceinline__ void wgmma_pv(float (&o)[N / 2], const uint32_t* a, uint64_t db);
 template <>
 __device__ __forceinline__ void wgmma_pv<64>(float (&o)[32], const uint32_t* a, uint64_t db) {
   wgmma_rs_m64n64(o, a, db);
@@ -163,6 +207,10 @@ template <>
 __device__ __forceinline__ void wgmma_pv<128>(float (&o)[64], const uint32_t* a, uint64_t db) {
   wgmma_rs_m64n128(o, a, db);
 }
+template <>
+__device__ __forceinline__ void wgmma_pv<192>(float (&o)[96], const uint32_t* a, uint64_t db) {
+  wgmma_rs_m64n192(o, a, db);
+}
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)
@@ -170,7 +218,8 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
                 const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
                 int s_len, int t_len, int n_heads, int group_log2, int causal,
                 float scale_log2) {
-  constexpr int kBoxes = D / 64;               // 64-dim boxes a row
+  constexpr int kBoxes = boxes(D);             // 64-dim boxes a row
+  constexpr int kPV = pv_width(D);             // P V's N: whole boxes
   constexpr uint32_t kTile = kBoxes * kBoxBytes;  // one 64-row tile of Q, K or V
   extern __shared__ unsigned char smem_raw[];
   // the 128-byte swizzle repeats every 1,024 bytes: tiles start on it
@@ -220,9 +269,9 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
 #pragma unroll
   for (int h = 0; h < 2; ++h) pos[h] = s0 + ((row0 + 8 * h) >> group_log2);
 
-  float acc[D / 2];
+  float acc[kPV / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < kPV / 2; ++i) acc[i] = 0.f;
   float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
 
   mbar_wait(bar_q, 0);
@@ -293,12 +342,12 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
       acc[4 * c + 3] *= corr[1];
     }
 
-    // O += P V (64 x D)
+    // O += P V (64 x kPV; the columns past D stay zero)
     fence_regs(acc);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kN / 16; ++kk)
-      wgmma_pv<D>(acc, pa + 4 * kk, smem_desc(v_s + kk * 16 * 128, kBoxBytes, 1024));
+      wgmma_pv<kPV>(acc, pa + 4 * kk, smem_desc(v_s + kk * 16 * 128, kBoxBytes, 1024));
     wgmma_commit();
     fence_regs(acc);
     wgmma_wait_all();
@@ -353,7 +402,7 @@ static int launch(const void* q, const void* k, const void* v, void* o, int b, i
       !encode(fn, &tk, k, b, t_len, n_kv_heads, D, 1, kN) ||
       !encode(fn, &tv, v, b, t_len, n_kv_heads, D, 1, kN))
     return (int)cudaErrorInvalidValue;
-  const int smem = (int)(D / 64 * kBoxBytes * (1 + 2 * kSlots) + 8 * (1 + kSlots) + 1024);
+  const int smem = (int)(boxes(D) * kBoxBytes * (1 + 2 * kSlots) + 8 * (1 + kSlots) + 1024);
   err = cudaFuncSetAttribute(fa_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
   if (err != cudaSuccess) return (int)err;
@@ -371,7 +420,7 @@ static int launch(const void* q, const void* k, const void* v, void* o, int b, i
 }  // namespace repro_torch
 
 // q (B,S,H,D), k/v (B,T,K,D), o (B,S,H,D), all contiguous bf16 and 16-byte
-// aligned; D 64 or 128; H / K a power of two that divides 64. Returns
+// aligned; D 64, 128 or 160; H / K a power of two that divides 64. Returns
 // cudaGetLastError() after the launch (or the error that kept it from one).
 extern "C" int repro_torch_flash_attention_wgmma(const void* q, const void* k, const void* v,
                                                  void* o, int b, int s_len, int t_len,
@@ -388,5 +437,7 @@ extern "C" int repro_torch_flash_attention_wgmma(const void* q, const void* k, c
     return launch<64>(q, k, v, o, b, s_len, t_len, n_heads, n_kv_heads, group_log2, causal, st);
   if (d_head == 128)
     return launch<128>(q, k, v, o, b, s_len, t_len, n_heads, n_kv_heads, group_log2, causal, st);
+  if (d_head == 160)
+    return launch<160>(q, k, v, o, b, s_len, t_len, n_heads, n_kv_heads, group_log2, causal, st);
   return (int)cudaErrorInvalidValue;
 }

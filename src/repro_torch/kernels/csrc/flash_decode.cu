@@ -1,6 +1,7 @@
 // flash_decode: one-token GQA attention against a per-row KV cache, for
-// the calls flash_decode_cluster.cu does not take (f32, and head dims
-// other than 64 and 128; kernels/ops.py routes).
+// the calls flash_decode_cluster.cu does not take (f32, and bf16 head dims
+// it has no instantiation for; kernels/ops.py routes). Head dims up to 160
+// (stablelm-12b's), in the head-dim classes of attention_tile.cuh.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_decode.py
 // (flash_decode, pallas_call at :91), which computes
@@ -27,14 +28,15 @@ namespace repro_torch {
 
 constexpr int kMaxGroup = kWarps * kRowsPerWarp;
 
-template <typename T>
+template <typename T, int MaxD>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const int* __restrict__ cur,
                     T* __restrict__ o, int t_len, int n_heads, int n_kv_heads,
                     int d_head, float scale) {
-  __shared__ __align__(16) float qs[kMaxGroup][kMaxD];
-  __shared__ KVTile tile;
+  TileSmem<MaxD>& sm = tile_smem<MaxD>();  // qs: kMaxGroup rows
+  auto& qs = sm.qs;
+  auto& tile = sm.tile;
 
   const int kvh = blockIdx.x;
   const int b = blockIdx.y;
@@ -43,18 +45,18 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // q[b, kvh * G + g, :] for the group's rows
   load_rows_f32(q + ((long)b * n_heads + (long)kvh * group) * d_head,
-                d_head, group, d_head, &qs[0][0], kMaxD);
+                d_head, group, d_head, &qs[0][0], MaxD);
 
   const int limit = min(cur[b], t_len - 1);
   const long row_stride = (long)n_kv_heads * d_head;
   const T* kb = k + ((long)b * t_len * n_kv_heads + kvh) * d_head;
   const T* vb = v + ((long)b * t_len * n_kv_heads + kvh) * d_head;
 
-  RowState st[kRowsPerWarp];
+  RowState<MaxD> st[kRowsPerWarp];
 #pragma unroll
   for (int r = 0; r < kRowsPerWarp; ++r) row_init(st[r]);
 
-  TileLoader<T> next;
+  TileLoader<T, MaxD> next;
   next.load(kb, vb, row_stride, 0, t_len, d_head);
   for (int t0 = 0; t0 <= limit; t0 += kTileK) {
     next.store(d_head, tile);
@@ -65,7 +67,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int r = 0; r < kRowsPerWarp; ++r) {
       const int g = r * kWarps + warp;  // warp-uniform
-      if (g < group) rows_step<T, 1>(qs[g], tile, d_head, t0, &limit, scale, &st[r]);
+      if (g < group) rows_step<T, 1, MaxD>(qs[g], tile, d_head, t0, &limit, scale, &st[r]);
     }
     __syncthreads();
   }
@@ -74,21 +76,37 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int r = 0; r < kRowsPerWarp; ++r) {
     const int g = r * kWarps + warp;
     if (g < group) {
-      row_emit<T>(st[r], d_head, o + ((long)b * n_heads + (long)kvh * group + g) * d_head);
+      row_emit<T, MaxD>(st[r], d_head, o + ((long)b * n_heads + (long)kvh * group + g) * d_head);
     }
   }
 }
 
-template <typename T>
-static void launch(const void* q, const void* k, const void* v,
-                   const int* cur, void* o, int b, int t_len, int n_heads,
-                   int n_kv_heads, int d_head, cudaStream_t stream) {
+template <typename T, int MaxD>
+static int launch_class(const void* q, const void* k, const void* v,
+                        const int* cur, void* o, int b, int t_len, int n_heads,
+                        int n_kv_heads, int d_head, cudaStream_t stream) {
+  const cudaError_t err = set_tile_smem<MaxD>(flash_decode_kernel<T, MaxD>);
+  if (err != cudaSuccess) return (int)err;
   const dim3 grid(n_kv_heads, b);
   const float scale = 1.f / sqrtf((float)d_head);
-  flash_decode_kernel<T><<<grid, kThreads, 0, stream>>>(
+  flash_decode_kernel<T, MaxD><<<grid, kThreads, sizeof(TileSmem<MaxD>), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), cur, static_cast<T*>(o), t_len, n_heads,
       n_kv_heads, d_head, scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int launch(const void* q, const void* k, const void* v, const int* cur,
+                  void* o, int b, int t_len, int n_heads, int n_kv_heads,
+                  int d_head, cudaStream_t stream) {
+  if (d_head <= 128)
+    return launch_class<T, 128>(q, k, v, cur, o, b, t_len, n_heads, n_kv_heads,
+                                d_head, stream);
+  if (d_head <= kMaxD)
+    return launch_class<T, kMaxD>(q, k, v, cur, o, b, t_len, n_heads,
+                                  n_kv_heads, d_head, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace repro_torch
@@ -102,14 +120,11 @@ extern "C" int repro_torch_flash_decode(const void* q, const void* k,
                                         void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   const int* c = static_cast<const int*>(cur);
-  if (dtype == 0) {
-    repro_torch::launch<float>(q, k, v, c, o, b, t_len, n_heads, n_kv_heads,
-                               d_head, st);
-  } else if (dtype == 1) {
-    repro_torch::launch<__nv_bfloat16>(q, k, v, c, o, b, t_len, n_heads,
-                                       n_kv_heads, d_head, st);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if (dtype == 0)
+    return repro_torch::launch<float>(q, k, v, c, o, b, t_len, n_heads,
+                                      n_kv_heads, d_head, st);
+  if (dtype == 1)
+    return repro_torch::launch<__nv_bfloat16>(q, k, v, c, o, b, t_len, n_heads,
+                                              n_kv_heads, d_head, st);
+  return (int)cudaErrorInvalidValue;
 }

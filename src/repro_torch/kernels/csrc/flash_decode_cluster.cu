@@ -1,7 +1,7 @@
 // flash_decode, bf16 split-KV over a thread-block cluster: one-token GQA
-// attention against a per-row KV cache, for head dims 64, 128 and 256
-// (recurrentgemma-2b's local-attention ring decode: MQA, 10 heads on one
-// KV head).
+// attention against a per-row KV cache, for head dims 64, 128, 160
+// (stablelm-12b's) and 256 (recurrentgemma-2b's local-attention ring
+// decode: MQA, 10 heads on one KV head).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_decode.py
 // (flash_decode, pallas_call at :91) for those calls; f32 calls and other
@@ -53,6 +53,10 @@
 //   to 16 k-steps (64 registers) and each warp's quarter of P.V to 64
 //   dims (32 accumulators). At recurrentgemma's decode (B = 4, one KV
 //   head, T = 2,048) the grid is 4 clusters of 8: 32 blocks on 132 SMs.
+// - Head dim 160: ~101 KB of shared memory; each warp's quarter of P.V is
+//   40 dims, five 8-dim n-tiles: two ldmatrix.x4.trans pairs and an
+//   ldmatrix.x2.trans for the odd fifth tile (both key halves of one
+//   n-tile), so no read passes the warp's dims.
 // Tried and not kept (PERF.md): f32 products on the CUDA cores,
 // one key a thread for the scores and two dims a thread for P.V, with
 // scores and p through shared memory: 12.26 us at the serving shape on an
@@ -124,6 +128,12 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t (&r)[4]) {
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr));
 }
+// two 8 x 8 blocks, transposed: lanes 0-7 and 8-15 give their rows
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t addr, uint32_t (&r)[2]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
+}
 
 // c (16 x 8, f32) += a (16 x 16, bf16, row) * b (16 x 8, bf16, col)
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
@@ -166,13 +176,15 @@ __device__ __forceinline__ void load_tile(Smem<D>& sm, int st, const __nv_bfloat
   }
 }
 
-// grid (splits, K, B), cluster (splits, 1, 1), 128 threads
+// the kernel's body: grid (splits, K, B), cluster (splits, 1, 1), 128 threads
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-fd_cluster_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v, const int* __restrict__ cur,
-                  __nv_bfloat16* __restrict__ o, int t_len, int n_heads, int n_kv_heads,
-                  int chunk, float scale) {
+__device__ __forceinline__ void fd_cluster_body(const __nv_bfloat16* __restrict__ q,
+                                                const __nv_bfloat16* __restrict__ k,
+                                                const __nv_bfloat16* __restrict__ v,
+                                                const int* __restrict__ cur,
+                                                __nv_bfloat16* __restrict__ o, int t_len,
+                                                int n_heads, int n_kv_heads, int chunk,
+                                                float scale) {
   constexpr int kKSteps = D / 16;      // k-steps of Q K^T
   constexpr int kDimTiles = D / 32;    // 8-dim n-tiles of P.V a warp
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -286,7 +298,7 @@ fd_cluster_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
     for (int r = 0; r < 2; ++r) l_r[r] = l_r[r] * corr[r] + quad_sum(sum[r]);
 
     // acc = acc * corr + P V over this warp's dims; ldmatrix.trans of V
-    // gives the B fragments of two dim tiles
+    // gives the B fragments of two dim tiles (of one for an odd last tile)
 #pragma unroll
     for (int dt = 0; dt < kDimTiles; ++dt) {
       acc[dt][0] *= corr[0];
@@ -297,7 +309,7 @@ fd_cluster_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
 #pragma unroll
     for (int kk = 0; kk < kTile / 16; ++kk) {
 #pragma unroll
-      for (int dt = 0; dt < kDimTiles; dt += 2) {
+      for (int dt = 0; dt + 1 < kDimTiles; dt += 2) {
         uint32_t vf[4];
         const int mi = lane >> 3;
         ldsm_x4_trans(saddr(&sm.v[st][kk * 16 + (mi & 1) * 8 + (lane & 7)]
@@ -305,6 +317,14 @@ fd_cluster_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
                       vf);
         mma_bf16(acc[dt], pa[kk], vf[0], vf[1]);
         mma_bf16(acc[dt + 1], pa[kk], vf[2], vf[3]);
+      }
+      if constexpr (kDimTiles % 2 == 1) {
+        constexpr int dt = kDimTiles - 1;
+        uint32_t vf[2];
+        ldsm_x2_trans(saddr(&sm.v[st][kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)]
+                                 [d_warp + dt * 8]),
+                      vf);
+        mma_bf16(acc[dt], pa[kk], vf[0], vf[1]);
       }
     }
     __syncthreads();  // the stage is free for the tile after next
@@ -353,13 +373,43 @@ fd_cluster_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
   }
 }
 
+#define FD_CLUSTER_PARAMS                                                                       \
+  const __nv_bfloat16 *__restrict__ q, const __nv_bfloat16 *__restrict__ k,                    \
+      const __nv_bfloat16 *__restrict__ v, const int *__restrict__ cur,                        \
+      __nv_bfloat16 *__restrict__ o, int t_len, int n_heads, int n_kv_heads, int chunk,        \
+      float scale
+
+// head dims 64, 128 and 256
+template <int D>
+__global__ void __launch_bounds__(kThreads) fd_cluster_kernel(FD_CLUSTER_PARAMS) {
+  fd_cluster_body<D>(q, k, v, cur, o, t_len, n_heads, n_kv_heads, chunk, scale);
+}
+
+// head dim 160: under the default bounds ptxas holds this instantiation to
+// 128 registers and spills; at one block an SM it keeps all in registers
+// (~200). Its ~101 KB of shared memory allows two blocks an SM at most.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1) fd_cluster_kernel_1sm(FD_CLUSTER_PARAMS) {
+  fd_cluster_body<D>(q, k, v, cur, o, t_len, n_heads, n_kv_heads, chunk, scale);
+}
+#undef FD_CLUSTER_PARAMS
+
+template <int D>
+constexpr auto cluster_kernel() {  // instantiates only the kernel D runs
+  if constexpr (D == 160) {
+    return fd_cluster_kernel_1sm<D>;
+  } else {
+    return fd_cluster_kernel<D>;
+  }
+}
+
 template <int D>
 static int launch(const void* q, const void* k, const void* v, const int* cur, void* o, int b,
                   int t_len, int n_heads, int n_kv_heads, int splits, int chunk,
                   cudaStream_t stream) {
+  const auto kernel = cluster_kernel<D>();
   const int smem = (int)sizeof(Smem<D>);
-  cudaError_t err = cudaFuncSetAttribute(fd_cluster_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)splits, (unsigned)n_kv_heads, (unsigned)b);
@@ -374,7 +424,7 @@ static int launch(const void* q, const void* k, const void* v, const int* cur, v
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const float scale = 1.f / sqrtf((float)D);
-  err = cudaLaunchKernelEx(&cfg, fd_cluster_kernel<D>, static_cast<const __nv_bfloat16*>(q),
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const __nv_bfloat16*>(q),
                            static_cast<const __nv_bfloat16*>(k),
                            static_cast<const __nv_bfloat16*>(v), cur,
                            static_cast<__nv_bfloat16*>(o), t_len, n_heads, n_kv_heads, chunk,
@@ -387,7 +437,7 @@ static int launch(const void* q, const void* k, const void* v, const int* cur, v
 }  // namespace repro_torch
 
 // q (B,H,D), k/v caches (B,T,K,D), cur (B,) int32, o (B,H,D), all
-// contiguous bf16 and 16-byte aligned; D 64, 128 or 256; H / K <= 16;
+// contiguous bf16 and 16-byte aligned; D 64, 128, 160 or 256; H / K <= 16;
 // 1 <= splits <= 8 slices of chunk positions (a multiple of 64) covering T.
 // Returns the launch's error, else cudaGetLastError().
 extern "C" int repro_torch_flash_decode_cluster(const void* q, const void* k, const void* v,
@@ -405,6 +455,8 @@ extern "C" int repro_torch_flash_decode_cluster(const void* q, const void* k, co
     return launch<64>(q, k, v, c, o, b, t_len, n_heads, n_kv_heads, splits, chunk, st);
   if (d_head == 128)
     return launch<128>(q, k, v, c, o, b, t_len, n_heads, n_kv_heads, splits, chunk, st);
+  if (d_head == 160)
+    return launch<160>(q, k, v, c, o, b, t_len, n_heads, n_kv_heads, splits, chunk, st);
   if (d_head == 256)
     return launch<256>(q, k, v, c, o, b, t_len, n_heads, n_kv_heads, splits, chunk, st);
   return (int)cudaErrorInvalidValue;

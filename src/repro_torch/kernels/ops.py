@@ -25,10 +25,10 @@ LAUNCHES: Dict[str, int] = {
 ENTRY_LAUNCHES: Dict[str, int] = {}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_HEAD_DIM = 128  # kMaxD in csrc/attention_tile.cuh: K4 and the tile decode kernel
-_CLUSTER_HEAD_DIMS = (64, 128, 256)  # csrc/flash_decode_cluster.cu's instantiations
+_MAX_HEAD_DIM = 160  # kMaxD in csrc/attention_tile.cuh: K4 and the tile decode kernel
+_CLUSTER_HEAD_DIMS = (64, 128, 160, 256)  # csrc/flash_decode_cluster.cu's instantiations
 _WIDE_ROUTE = "bf16 decode at head dim 256 runs on flash_decode's cluster kernel"
-_WGMMA_HEAD_DIMS = (64, 128)  # csrc/flash_attention_wgmma.cu
+_WGMMA_HEAD_DIMS = (64, 128, 160)  # csrc/flash_attention_wgmma.cu
 _WGMMA_ROWS = 64              # its query tile: the group must divide it
 _MAX_GROUP = 16      # kMaxGroup in csrc/flash_decode.cu and flash_decode_cluster.cu
 _DECODE_TILE = 64    # kTile in csrc/flash_decode_cluster.cu: a slice is whole tiles
@@ -88,7 +88,7 @@ def _launch(name: str, fn, *args) -> None:
 def _attention_kernel(dtype: torch.dtype, d: int, group: int) -> str:
     """Which CUDA kernel serves a ``flash_attention`` call: ``"wgmma"``
     (tensor cores, ``flash_attention_wgmma.cu``) for bf16 with head dim
-    64 or 128 and a group ``H / K`` that divides 64; ``"cuda_core"``
+    64, 128 or 160 and a group ``H / K`` that divides 64; ``"cuda_core"``
     (``flash_attention.cu``) for everything else, f32 included (TF32
     products would miss its 2e-5 tolerance)."""
     if dtype == torch.bfloat16 and d in _WGMMA_HEAD_DIMS and group >= 1 \
@@ -129,9 +129,9 @@ def flash_attention(q, k, v, causal: bool = True):
 def _decode_kernel(dtype: torch.dtype, d: int) -> str:
     """Which CUDA kernel serves a ``flash_decode`` call: ``"cluster"``
     (split-KV over a thread-block cluster, ``flash_decode_cluster.cu``)
-    for bf16 with head dim 64, 128 or 256 (recurrentgemma's); ``"tile"``
-    (``flash_decode.cu``, head dims up to 128) for everything else, f32
-    included."""
+    for bf16 with head dim 64, 128, 160 (stablelm-12b's) or 256
+    (recurrentgemma's); ``"tile"`` (``flash_decode.cu``, head dims up to
+    160) for everything else, f32 included."""
     return "cluster" if dtype == torch.bfloat16 and d in _CLUSTER_HEAD_DIMS else "tile"
 
 

@@ -20,7 +20,7 @@ import math
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.layers.common import dense_init, segment
+from repro_torch.layers.common import cast, dense_init, segment
 from repro_torch.layers.sdpa import NEG_INF, _expand_kv, sdpa, softmax_weights
 
 
@@ -37,7 +37,7 @@ def init_attn(generator, d_model: int, num_heads: int, num_kv_heads: int,
 def _project(x: torch.Tensor, w: torch.Tensor, dtype) -> torch.Tensor:
     """einsum('bsd,dhk->bshk') as one matrix product."""
     d, h, k = w.shape
-    return (x @ w.reshape(d, h * k).to(dtype)).unflatten(-1, (h, k))
+    return (x @ cast(w.reshape(d, h * k), dtype)).unflatten(-1, (h, k))
 
 
 def qkv(params, x: torch.Tensor, dtype):
@@ -51,7 +51,7 @@ def qkv(params, x: torch.Tensor, dtype):
 def out_proj(params, o: torch.Tensor, dtype) -> torch.Tensor:
     """einsum('bshk,hkd->bsd')."""
     h, k, d = params["wo"].shape
-    return o.flatten(-2) @ params["wo"].reshape(h * k, d).to(dtype)
+    return o.flatten(-2) @ cast(params["wo"].reshape(h * k, d), dtype)
 
 
 def full_attention(q, k, v, causal: bool = True):

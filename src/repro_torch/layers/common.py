@@ -1,7 +1,10 @@
-"""Shared primitives: init, norms, activations, and the remat segment."""
+"""Shared primitives: init, norms, activations, the remat segment and
+the weight cast that ``remat="dots"`` recasts in the backward."""
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Optional, Sequence
 
 import torch
@@ -57,3 +60,66 @@ def segment(ckpt: bool, fn, *xs):
     if ckpt:
         return checkpoint(fn, *xs, use_reentrant=False, preserve_rng_state=False)
     return fn(*xs)
+
+
+_LOCAL = threading.local()  # .casts: the registry of recast_weights, or None
+
+
+def cast(w: torch.Tensor, dtype) -> torch.Tensor:
+    """``w.to(dtype)``: a weight cast at its use.  Inside
+    ``recast_weights`` the cast is registered, so that autograd saves the
+    weight it came from in its place."""
+    c = w.to(dtype)
+    casts = getattr(_LOCAL, "casts", None)
+    if casts is not None and c is not w and c.numel():
+        casts[c.untyped_storage().data_ptr()] = (c, _Recast(w, dtype))
+    return c
+
+
+class _Recast:
+    """One weight cast as the backward gets it back: cast again from the
+    weight.  The recast is kept while saved views of it are still to be
+    unpacked (a ragged product saves a view per expert)."""
+
+    def __init__(self, w: torch.Tensor, dtype):
+        self.w, self.dtype, self.pending, self.cast = w, dtype, 0, None
+
+    def unpack(self) -> torch.Tensor:
+        c = self.cast if self.cast is not None else self.w.detach().to(self.dtype)
+        self.pending -= 1
+        self.cast = c if self.pending > 0 else None
+        return c
+
+
+@contextlib.contextmanager
+def recast_weights():
+    """Autograd saves no weight cast made by ``cast`` in this scope (a
+    pattern period under ``remat="dots"``): a saved tensor that lies in a
+    registered cast's storage (the cast or a view of it) is saved as its
+    weight, dtype, size, stride and offset, and the backward casts the
+    weight again, as JAX's ``checkpoint_dots`` recomputes the casts.
+    Recasting gives the same bits, so values do not change."""
+    casts = {}
+
+    def pack(t):
+        hit = casts.get(t.untyped_storage().data_ptr())
+        if hit is None:
+            return t
+        hit[1].pending += 1
+        return hit[1], t.size(), t.stride(), t.storage_offset()
+
+    def unpack(packed):
+        if isinstance(packed, torch.Tensor):
+            return packed
+        recast, size, stride, offset = packed
+        return recast.unpack().as_strided(size, stride, offset)
+
+    outer, _LOCAL.casts = getattr(_LOCAL, "casts", None), casts
+    try:
+        with torch.autograd.graph.saved_tensors_hooks(pack, unpack):
+            yield
+    finally:
+        _LOCAL.casts = outer
+        # every tensor saved in the scope keeps ``pack`` (and so this
+        # registry) until the backward: drop the casts now
+        casts.clear()

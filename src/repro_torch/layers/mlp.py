@@ -1,14 +1,15 @@
 """Feed-forward blocks: SwiGLU / GeGLU / plain GeLU.
 
 Weights are stored in the storage dtype (f32) and cast to the compute
-dtype at each use, as in the JAX package.  With ``ckpt`` the activation
-between the products is a remat segment (``common.segment``).
+dtype at each use (``common.cast``), as in the JAX package.  With
+``ckpt`` the activation between the products is a remat segment
+(``common.segment``).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.layers.common import activation_fn, dense_init, segment
+from repro_torch.layers.common import activation_fn, cast, dense_init, segment
 
 
 def init_ffn(generator, d_model: int, d_ff: int, activation: str, dtype, device):
@@ -27,9 +28,9 @@ def gated(act, g: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
 
 def apply_ffn(params, x: torch.Tensor, activation: str, dtype, ckpt: bool = False) -> torch.Tensor:
     act = activation_fn(activation)
-    h = x @ params["w_in"].to(dtype)
+    h = x @ cast(params["w_in"], dtype)
     if "w_gate" in params:
-        h = segment(ckpt, gated, act, x @ params["w_gate"].to(dtype), h)
+        h = segment(ckpt, gated, act, x @ cast(params["w_gate"], dtype), h)
     else:
         h = segment(ckpt, act, h)
-    return h @ params["w_out"].to(dtype)
+    return h @ cast(params["w_out"], dtype)

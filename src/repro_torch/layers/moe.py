@@ -26,7 +26,7 @@ import math
 
 import torch
 
-from repro_torch.layers.common import activation_fn, dense_init, segment
+from repro_torch.layers.common import activation_fn, cast, dense_init, segment
 from repro_torch.layers.mlp import gated
 from repro_torch.models.config import ModelConfig, MoEConfig
 
@@ -105,10 +105,10 @@ def apply_moe_dense(params, x, cfg: ModelConfig, moe: MoEConfig, dtype, ckpt: bo
     gate, ids, aux = _router(params, x, moe, ckpt)
     dispatch, combine = segment(ckpt, _dispatch_combine, gate, ids, moe.num_experts, cap, dtype)
     xin = torch.einsum("bsec,bsd->ebcd", dispatch, x)  # (E,B,C,d)
-    h = torch.einsum("ebcd,edf->ebcf", xin, params["w_in"].to(dtype))
-    gt = torch.einsum("ebcd,edf->ebcf", xin, params["w_gate"].to(dtype))
+    h = torch.einsum("ebcd,edf->ebcf", xin, cast(params["w_in"], dtype))
+    gt = torch.einsum("ebcd,edf->ebcf", xin, cast(params["w_gate"], dtype))
     h = segment(ckpt, gated, activation_fn(cfg.activation), gt, h)
-    yout = torch.einsum("ebcf,efd->ebcd", h, params["w_out"].to(dtype))
+    yout = torch.einsum("ebcf,efd->ebcd", h, cast(params["w_out"], dtype))
     y = torch.einsum("ebcd,bsec->bsd", yout, combine)
     if "shared" in params:
         y = y + _shared(params["shared"], x, cfg, dtype, ckpt)
@@ -139,10 +139,10 @@ def apply_moe_ragged(params, x, cfg: ModelConfig, moe: MoEConfig, dtype, ckpt: b
     sorted_tok = rep_tok[order]
     sizes = torch.bincount(rep_ids, minlength=e).tolist()
     gathered = tokens[sorted_tok]  # (T·k, d)
-    h = ragged_dot(gathered, params["w_in"].to(dtype), sizes)
-    g = ragged_dot(gathered, params["w_gate"].to(dtype), sizes)
+    h = ragged_dot(gathered, cast(params["w_in"], dtype), sizes)
+    g = ragged_dot(gathered, cast(params["w_gate"], dtype), sizes)
     h = segment(ckpt, gated, activation_fn(cfg.activation), g, h)
-    out = ragged_dot(h, params["w_out"].to(dtype), sizes)  # (T·k, d)
+    out = ragged_dot(h, cast(params["w_out"], dtype), sizes)  # (T·k, d)
     y = segment(ckpt, _scatter, out, gate.to(dtype), order, sorted_tok, b * s).reshape(b, s, d)
     if "shared" in params:
         y = y + _shared(params["shared"], x, cfg, dtype, ckpt)
@@ -150,9 +150,9 @@ def apply_moe_ragged(params, x, cfg: ModelConfig, moe: MoEConfig, dtype, ckpt: b
 
 
 def _shared(sp, x, cfg: ModelConfig, dtype, ckpt: bool):
-    h = x @ sp["w_in"].to(dtype)
-    h = segment(ckpt, gated, activation_fn(cfg.activation), x @ sp["w_gate"].to(dtype), h)
-    return h @ sp["w_out"].to(dtype)
+    h = x @ cast(sp["w_in"], dtype)
+    h = segment(ckpt, gated, activation_fn(cfg.activation), x @ cast(sp["w_gate"], dtype), h)
+    return h @ cast(sp["w_out"], dtype)
 
 
 def apply_moe(params, x, cfg: ModelConfig, moe: MoEConfig, dtype, ckpt: bool = False):

@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.layers.common import activation_fn, dense_init, segment
+from repro_torch.layers.common import activation_fn, cast, dense_init, segment
 
 C_CONST = 8.0
 
@@ -54,7 +54,7 @@ def _block_diag(u: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     h = w.shape[0]
     dt = torch.promote_types(u.dtype, w.dtype)
     ub = u.to(dt).reshape(b, s, h, width // h)
-    return torch.einsum("bshw,hwv->bshv", ub, w.to(dt)).reshape(b, s, width)
+    return torch.einsum("bshw,hwv->bshv", ub, cast(w, dt)).reshape(b, s, width)
 
 
 def _causal_conv(u: torch.Tensor, conv_w: torch.Tensor, conv_b: torch.Tensor, dtype,
@@ -62,7 +62,7 @@ def _causal_conv(u: torch.Tensor, conv_w: torch.Tensor, conv_b: torch.Tensor, dt
     """Depthwise causal conv along time.  u: (B,S,W); conv_w: (CW, W),
     taken in ``dtype``.  Returns the output and the trailing ``CW - 1``
     inputs."""
-    conv_w, conv_b = conv_w.to(dtype), conv_b.to(dtype)
+    conv_w, conv_b = cast(conv_w, dtype), cast(conv_b, dtype)
     cw = conv_w.shape[0]
     if history is None:
         pad = u.new_zeros((u.shape[0], cw - 1, u.shape[2]))
@@ -103,23 +103,23 @@ def _scan(ra, ri, u, g, ba, bi, lam, h0, dtype):
 def apply_rglru(params, x: torch.Tensor, dtype, h0=None, conv_hist=None, ckpt: bool = False):
     """x: (B,S,d) -> (y, (h_last, conv_hist)).  Full-sequence path; the
     carried state ``h_last`` stays f32."""
-    u = x @ params["wx"].to(dtype)
-    g = x @ params["wg"].to(dtype)
+    u = x @ cast(params["wx"], dtype)
+    g = x @ cast(params["wg"], dtype)
     u, hist = segment(ckpt, _causal_conv, u, params["conv_w"], params["conv_b"], dtype, conv_hist)
     ra, ri = _gate_products(params, u)
     y, h_last = segment(ckpt, _scan, ra, ri, u, g, params["ba"], params["bi"], params["lam"],
                         h0, dtype)
-    return y @ params["wo"].to(dtype), (h_last, hist)
+    return y @ cast(params["wo"], dtype), (h_last, hist)
 
 
 def apply_rglru_step(params, x: torch.Tensor, state, dtype):
     """Single decode step.  x: (B,1,d); state = (h_prev (B,W) f32,
     conv_hist (B,CW-1,W)).  Returns (y (B,1,d), (h, conv_hist))."""
     h_prev, conv_hist = state
-    u = x @ params["wx"].to(dtype)
-    g = activation_fn("gelu")(x @ params["wg"].to(dtype))
+    u = x @ cast(params["wx"], dtype)
+    g = activation_fn("gelu")(x @ cast(params["wg"], dtype))
     u, hist = _causal_conv(u, params["conv_w"], params["conv_b"], dtype, conv_hist)
     a, b = _gates(*_gate_products(params, u), u, params["ba"], params["bi"], params["lam"])
     h = a[:, 0] * h_prev.float() + b[:, 0]  # the carried state stays f32
-    y = (h.to(dtype) * g[:, 0]) @ params["wo"].to(dtype)
+    y = (h.to(dtype) * g[:, 0]) @ cast(params["wo"], dtype)
     return y[:, None], (h, hist)

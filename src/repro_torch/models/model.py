@@ -22,12 +22,15 @@ default) is JAX's ``checkpoint_dots``: no period-level checkpoint, but
 every stretch of a block's work between two matrix products (norms,
 RoPE, softmax, the conv, gates and scan, activations, MoE routing) is a
 checkpointed segment (``layers.common.segment``), so the backward
-recomputes the segments and no product.  The products keep their inputs
-and outputs as autograd saves them (JAX's policy recomputes the inputs;
-the port saves them, weight casts included, for more memory).
+recomputes the segments and no product.  The products keep their
+activation inputs and outputs as autograd saves them (JAX's policy
+recomputes the inputs too), but no weight cast: each period and the
+logits' product run under ``layers.common.recast_weights``, so the
+backward casts the f32 weights again.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 from typing import Any, Dict
@@ -35,7 +38,7 @@ from typing import Any, Dict
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.layers.common import dense_init, rms_norm
+from repro_torch.layers.common import cast, dense_init, recast_weights, rms_norm
 from repro_torch.layers.positional import default_positions, rope_angles
 from repro_torch.models.blocks import apply_block, init_block, init_cache
 from repro_torch.models.config import ModelConfig
@@ -138,6 +141,12 @@ def _remat_wrap(fn, cfg: ModelConfig):
     return functools.partial(checkpoint, fn, use_reentrant=False, preserve_rng_state=False)
 
 
+def _recast_scope(cfg: ModelConfig):
+    """Under ``remat="dots"``, the backward casts the weights again
+    (``recast_weights``): no bf16 weight cast is saved."""
+    return recast_weights() if cfg.remat == "dots" else contextlib.nullcontext()
+
+
 def _run_stage_train(stage_params, pattern, repeats: int, x, cfg: ModelConfig, aux):
     """The stage's layers in training: ``(x, aux loss)``, the loss a
     Python ``0.0`` while no ``moe`` block has added to it."""
@@ -154,7 +163,8 @@ def _run_stage_train(stage_params, pattern, repeats: int, x, cfg: ModelConfig, a
     body = _remat_wrap(body, cfg)
     aloss = 0.0
     for lp in _unstack(stage_params, repeats):
-        x, a = body(x, lp)
+        with _recast_scope(cfg):
+            x, a = body(x, lp)
         aloss = aloss + a
     return x, aloss
 
@@ -175,7 +185,7 @@ def _embed(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor:
 
 def _logits(cfg: ModelConfig, params, hidden: torch.Tensor) -> torch.Tensor:
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return hidden @ w.to(cfg.compute_dtype)
+    return hidden @ cast(w, cfg.compute_dtype)
 
 
 def forward_hidden(cfg: ModelConfig, params, tokens: torch.Tensor, mode: str,
@@ -244,7 +254,8 @@ def loss_fn(cfg: ModelConfig, params, batch):
     safe_labels = labels.clamp(min=0).long()
 
     def ce(h, lab, val):
-        logits = _logits(cfg, params, h).float()
+        with _recast_scope(cfg):
+            logits = _logits(cfg, params, h).float()
         idx = lab[..., None]
         if cfg.loss_impl == "lse":
             nll = torch.logsumexp(logits, dim=-1) - logits.gather(-1, idx)[..., 0]

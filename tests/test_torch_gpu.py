@@ -7,12 +7,14 @@ installed:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Tolerances for attention are those of ``tests/test_kernels.py``: 2e-5
-in f32, 2e-2 in bf16.  bf16 attention with head dim 64 or 128 and a group
-dividing 64 runs the tensor-core kernel (``flash_attention_wgmma.cu``),
-the rest the CUDA-core one (``flash_attention.cu``); bf16 decode with head
-dim 64, 128 or 256 runs the split-KV cluster kernel
+in f32, 2e-2 in bf16.  bf16 attention with head dim 64, 128 or 160 and a
+group dividing 64 runs the tensor-core kernel
+(``flash_attention_wgmma.cu``), the rest the CUDA-core one
+(``flash_attention.cu``, head dims up to 160); bf16 decode with head dim
+64, 128, 160 or 256 runs the split-KV cluster kernel
 (``flash_decode_cluster.cu``), f32 decode the tile kernel
-(``flash_decode.cu``, head dims up to 128).  ``csr_dot`` is bit-exact against ``ref.csr_dot``,
+(``flash_decode.cu``, head dims up to 160).  Head dim 160 is
+stablelm-12b's.  ``csr_dot`` is bit-exact against ``ref.csr_dot``,
 which sums in the kernel's order; both gathers copy bytes and are
 bit-exact against ``ref.batch_gather``, ``batch_gather`` on both of its
 routes (host ids in the launch's parameters, or ids loaded on the card).  The scan (``rglru_scan`` and its
@@ -38,7 +40,8 @@ def cuda():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dt", DTYPES)
-@pytest.mark.parametrize("s,h,kh,d", [(128, 32, 8, 128), (200, 32, 8, 128), (37, 4, 1, 64)])
+@pytest.mark.parametrize("s,h,kh,d", [(128, 32, 8, 128), (200, 32, 8, 128), (37, 4, 1, 64),
+                                     (128, 32, 8, 160), (200, 32, 8, 160), (37, 4, 1, 160)])
 def test_flash_attention_kernel_on_card(cuda, s, h, kh, d, dt):
     g = torch.Generator().manual_seed(s)
     q, k, v = (torch.randn(1, s, n, d, generator=g).to(cuda, dt) for n in (h, kh, kh))
@@ -58,10 +61,10 @@ ATTN_LENGTHS = [(1, 1), (63, 63), (64, 64), (65, 65), (200, 200), (4096, 4096),
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("group", [1, 4, 8])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 160])
 @pytest.mark.parametrize("s,t", ATTN_LENGTHS)
 def test_flash_attention_wgmma_on_card(cuda, s, t, d, group):
-    """The tensor-core kernel (bf16, D 64/128, groups 1/4/8) against the
+    """The tensor-core kernel (bf16, D 64/128/160, groups 1/4/8) against the
     plain version, causal and not, at ragged S and T; one launch a call."""
     kh = 2
     assert ops._attention_kernel(torch.bfloat16, d, group) == "wgmma"
@@ -80,14 +83,16 @@ def test_flash_attention_wgmma_on_card(cuda, s, t, d, group):
 @pytest.mark.parametrize("dt", DTYPES)
 @pytest.mark.parametrize("s", [64, 128, 200])
 @pytest.mark.parametrize("h,kh", [(16, 16), (24, 8), (48, 8), (32, 8)])
-def test_flash_attention_at_the_copied_configs_heads_on_card(cuda, h, kh, s, dt):
+@pytest.mark.parametrize("d", [128, 160])
+def test_flash_attention_at_the_copied_configs_heads_on_card(cuda, d, h, kh, s, dt):
     """K4 at the heads of qwen2-moe-a2.7b (16/16, group 1), phi4-mini-3.8b
     (24/8, group 3: bf16 on the CUDA-core kernel, 3 does not divide 64),
-    dbrx-132b (48/8, group 6, likewise) and minitron-8b (32/8), D 128."""
-    route = ops._attention_kernel(dt, 128, h // kh)
+    dbrx-132b (48/8, group 6, likewise) and minitron-8b (32/8), D 128;
+    and the same groups at D 160, stablelm-12b's (32/8)."""
+    route = ops._attention_kernel(dt, d, h // kh)
     assert route == ("wgmma" if dt == torch.bfloat16 and 64 % (h // kh) == 0 else "cuda_core")
-    g = torch.Generator().manual_seed(s + h)
-    q, k, v = (torch.randn(1, s, n, 128, generator=g).to(cuda, dt) for n in (h, kh, kh))
+    g = torch.Generator().manual_seed(s + h + d)
+    q, k, v = (torch.randn(1, s, n, d, generator=g).to(cuda, dt) for n in (h, kh, kh))
     ops.reset_launch_counts()
     for causal in (True, False):
         got = ops.flash_attention(q, k, v, causal=causal)
@@ -99,11 +104,12 @@ def test_flash_attention_at_the_copied_configs_heads_on_card(cuda, h, kh, s, dt)
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dt", DTYPES)
-def test_flash_decode_kernel_on_card(cuda, dt):
+@pytest.mark.parametrize("d", [128, 160])
+def test_flash_decode_kernel_on_card(cuda, d, dt):
     g = torch.Generator().manual_seed(1)
     c = 160
-    q = torch.randn(8, 32, 128, generator=g).to(cuda, dt)
-    k, v = (torch.randn(8, c, 8, 128, generator=g).to(cuda, dt) for _ in range(2))
+    q = torch.randn(8, 32, d, generator=g).to(cuda, dt)
+    k, v = (torch.randn(8, c, 8, d, generator=g).to(cuda, dt) for _ in range(2))
     cur = torch.tensor([0, 5, 31, 32, 100, c - 1, c, c + 50], dtype=torch.int32, device=cuda)
     got = ops.flash_decode(q, k, v, cur)
     want = ref.flash_decode(q, k, v, cur)
@@ -119,7 +125,7 @@ def _decode_curs(t):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dt", DTYPES)
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 160])
 @pytest.mark.parametrize("group", [1, 3, 4, 6, 8, 16])
 @pytest.mark.parametrize("t", [1, 32, 33, 160, 4096])
 def test_flash_decode_sweep_on_card(cuda, t, group, d, dt):
@@ -171,6 +177,21 @@ def test_flash_decode_head_dim_256_f32_is_refused_on_card(cuda):
     with pytest.raises(ValueError, match="cluster kernel"):
         ops.flash_decode(torch.zeros(1, 10, 256, device=cuda), z, z,
                          torch.zeros(1, dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", DTYPES)
+def test_head_dims_past_160_are_refused_on_card(cuda, dt):
+    """168 has no instantiation on either attention or decode route (the
+    cluster kernel's 256 aside): refused before a launch."""
+    z = torch.zeros(1, 64, 2, 168, device=cuda, dtype=dt)
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match="head dim 168"):
+        ops.flash_attention(torch.zeros(1, 64, 8, 168, device=cuda, dtype=dt), z, z)
+    with pytest.raises(ValueError, match="head dim 168"):
+        ops.flash_decode(torch.zeros(1, 8, 168, device=cuda, dtype=dt), z, z,
+                         torch.zeros(1, dtype=torch.int32, device=cuda))
+    assert ops.LAUNCHES["flash_attention"] == ops.LAUNCHES["flash_decode"] == 0
 
 
 @pytest.mark.gpu

@@ -64,6 +64,20 @@ def test_flash_attention_ragged_matches_layer(h, kh, s, dtype):
     _close(ops.flash_attention(q, k, v, causal=False), jattn.sdpa(qj, kj, vj), dtype)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_at_head_dim_160_matches_pallas_kernel(causal):
+    """stablelm-12b's head dim 160 at its group 4 (8 query heads on 2 KV
+    heads), f32: the plain version against the Pallas kernel in
+    interpret mode, two 64-key blocks."""
+    rng = np.random.default_rng(160 + causal)
+    qj, q = _pair(rng, (1, 128, 8, 160), "float32")
+    kj, k = _pair(rng, (1, 128, 2, 160), "float32")
+    vj, v = _pair(rng, (1, 128, 2, 160), "float32")
+    want = jops.flash_attention(qj, kj, vj, causal=causal, block_q=64, block_k=64,
+                                interpret=True)
+    _close(ops.flash_attention(q, k, v, causal=causal), want, "float32")
+
+
 # ------------------------------------------------------------ flash_decode
 
 
@@ -123,6 +137,20 @@ def test_flash_decode_every_cur_matches_pallas_kernel(dtype):
     _close(ops.flash_decode(q, k, v, torch.from_numpy(cur)), want, dtype)
 
 
+def test_flash_decode_at_head_dim_160_matches_pallas_kernel():
+    """stablelm-12b's head dim 160 at group 4, f32, one row each with cur
+    inside the cache, at T-1 and past T: the plain version against the
+    Pallas kernel in interpret mode, two 64-key blocks."""
+    t = 128
+    rng = np.random.default_rng(t + 160)
+    qj, q = _pair(rng, (4, 8, 160), "float32")
+    kj, k = _pair(rng, (4, t, 2, 160), "float32")
+    vj, v = _pair(rng, (4, t, 2, 160), "float32")
+    cur = np.asarray([0, 70, t - 1, t + 5], np.int32)
+    want = jops.flash_decode(qj, kj, vj, jnp.asarray(cur), block_k=64, interpret=True)
+    _close(ops.flash_decode(q, k, v, torch.from_numpy(cur)), want, "float32")
+
+
 # ----------------------------------------------------------------- dispatch
 
 
@@ -153,6 +181,9 @@ def test_cpu_path_launches_no_kernel_and_other_devices_raise():
 
 @pytest.mark.parametrize("dtype,d,group,kernel", [
     (torch.bfloat16, 128, 4, "wgmma"),   # granite-3-8b's prefill
+    (torch.bfloat16, 160, 4, "wgmma"),   # stablelm-12b's prefill
+    (torch.bfloat16, 160, 3, "cuda_core"),
+    (torch.float32, 160, 4, "cuda_core"),
     (torch.bfloat16, 64, 1, "wgmma"),
     (torch.bfloat16, 128, 64, "wgmma"),  # one position a 64-row tile
     (torch.bfloat16, 128, 3, "cuda_core"),  # 3 does not divide 64
@@ -185,6 +216,13 @@ def test_check_cuda_rejects_what_the_attention_kernels_do_not_take():
         ops._check_cuda("fa", (q, k, k), 8, 3, 64)
     with pytest.raises(ValueError, match="head dim"):
         ops._check_cuda("fa", (q[..., :60].contiguous(), k, k), 8, 2, 60)
+    for d in (160, 168, 192):  # past stablelm-12b's 160, no route takes a head dim
+        qd = torch.zeros(1, 4, 8, d, dtype=torch.bfloat16)
+        if d == 160:
+            assert ops._check_cuda("fa", (qd, qd, qd), 8, 2, d) == 1
+            continue
+        with pytest.raises(ValueError, match=f"head dim {d} .*8..160"):
+            ops._check_cuda("fa", (qd, qd, qd), 8, 2, d)
 
 
 @pytest.mark.parametrize("call,error", [
@@ -209,6 +247,8 @@ def test_wrapper_argument_checks(call, error):
 
 @pytest.mark.parametrize("dtype,d,kernel", [
     (torch.bfloat16, 128, "cluster"),  # granite-3-8b's decode
+    (torch.bfloat16, 160, "cluster"),  # stablelm-12b's decode
+    (torch.float32, 160, "tile"),
     (torch.bfloat16, 64, "cluster"),
     (torch.bfloat16, 256, "cluster"),  # recurrentgemma-2b's local-attention decode
     (torch.float32, 256, "tile"),      # which refuses it (below)

@@ -2,11 +2,13 @@
 against the JAX package.
 
 Inputs come from numpy seeds and the JAX parameters are carried across
-by ``params_from_jax``; the smoke configs run in float32 compute.
+by ``params_from_jax``; the smoke configs run in float32 compute, and
+``apply_moe`` also in bf16, as both configs compute by default.
 Tolerances:
   * ``apply_moe`` (dense and ragged dispatch): the routing ids equal
     exactly (a tie ordered otherwise by ``torch.topk`` shows here first),
-    outputs and the aux loss to 1e-5 (rtol = atol);
+    outputs and the aux loss to 1e-5 (rtol = atol); in bf16, outputs to
+    one bf16 ulp at the output's largest magnitude;
   * gradients (``jax.grad``): each leaf to 1e-4 of its largest entry;
   * the smoke models' ``loss_fn`` to 1e-5, ``prefill``, three
     ``decode_step``s and ``extend_cache`` to 1e-4 (sums in another
@@ -89,6 +91,37 @@ def test_apply_moe_matches_jax(arch, impl):
     _close(ty, jy, 1e-5)
     _close(ta, jm_["moe_aux"], 1e-5)
     _close(taux, jaux, 1e-5)
+
+
+def _bf16_ulp(mag: float) -> float:
+    """One bf16 ulp at magnitude ``mag`` (8 significant bits): the
+    spacing of bf16 numbers in [2^e, 2^(e+1))."""
+    return 2.0 ** (np.floor(np.log2(max(mag, 2.0 ** -126))) - 7)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+@pytest.mark.parametrize("impl", ["dense", "ragged"])
+def test_apply_moe_matches_jax_in_bf16(arch, impl):
+    """Both configs compute in bf16 by default.  With bf16 inputs and
+    compute: the routing ids equal JAX's (the router runs in f32 on the
+    same bf16 x), and ``apply_moe``'s output lies within one bf16 ulp of
+    JAX's at the output's magnitude, ``2^(floor(log2 max|y|) - 7)`` (two
+    f32 sums taken in another order, each rounded once to bf16)."""
+    jcfg, tcfg = _moe_cfg(arch, impl=impl)
+    jcfg, tcfg = jcfg.replace(dtype="bfloat16"), tcfg.replace(dtype="bfloat16")
+    jparams, tparams, x = _moe_inputs(jcfg, (2, 64), 8)
+    jx = jnp.asarray(x, jnp.bfloat16)
+    tx = torch.from_numpy(x).to(torch.bfloat16)
+    _, jids, _ = jmoe._router(jparams, jx, jcfg.moe)
+    _, tids, _ = tmoe._router(tparams, tx, tcfg.moe, False)
+    assert tids.numel() == 2 * 64 * tcfg.moe.experts_per_token
+    np.testing.assert_array_equal(tids.numpy(), np.asarray(jids))
+    jy, _ = jmoe.apply_moe(jparams, jx, jcfg, jcfg.moe, jnp.bfloat16)
+    ty, _ = tmoe.apply_moe(tparams, tx, tcfg, tcfg.moe, torch.bfloat16)
+    assert ty.dtype == torch.bfloat16 and jy.dtype == jnp.bfloat16
+    want = _np(jy)
+    tol = _bf16_ulp(float(np.abs(want).max()))
+    np.testing.assert_allclose(_np(ty), want, rtol=0, atol=tol)
 
 
 @pytest.mark.parametrize("impl", ["dense", "ragged"])

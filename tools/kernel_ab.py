@@ -18,10 +18,12 @@ Each turn is a fresh process that builds the kernels of one tree
   one launch a table on device ids;
 - ``flash_attention`` in bf16, causal, q (1,S,32,128), k/v (1,S,8,128) at
   S = 128 (the serving prefill) and 4,096 (granite-3-8b's context),
-  against ``scaled_dot_product_attention``;
+  against ``scaled_dot_product_attention``; and in f32 at S = 128 (the
+  CUDA-core kernel);
 - ``flash_decode`` at the serving shape (q (8,32,128), caches
   (8,160,8,128) bf16, chip_smoke's eight ``cur`` values), against
-  ``scaled_dot_product_attention`` with the position mask;
+  ``scaled_dot_product_attention`` with the position mask; and in f32
+  (the tile kernel);
 - ``rglru_scan`` and ``rglru_scan_bwd`` at the training path's shape
   (1, 4096, 2560) f32 (no library call computes a linear recurrence);
 - ``csr_dot`` at the SVM call's shape: a (10000, 5456) padded CSR block
@@ -168,9 +170,9 @@ def time_attention(chip_smoke, ops, dev, g, out):
     import torch
     import torch.nn.functional as F
 
-    for s in (128, 4096):
-        q = torch.randn(1, s, 32, 128, generator=g, device=dev).bfloat16()
-        k, v = (torch.randn(1, s, 8, 128, generator=g, device=dev).bfloat16() for _ in range(2))
+    for s, dt in ((128, torch.bfloat16), (4096, torch.bfloat16), (128, torch.float32)):
+        q = torch.randn(1, s, 32, 128, generator=g, device=dev).to(dt)
+        k, v = (torch.randn(1, s, 8, 128, generator=g, device=dev).to(dt) for _ in range(2))
         qt, kt, vt = (z.transpose(1, 2).contiguous() for z in (q, k, v))
         ref = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
         err = float((ops.flash_attention(q, k, v).float() - ref.transpose(1, 2).float()).abs().max())
@@ -180,7 +182,7 @@ def time_attention(chip_smoke, ops, dev, g, out):
                                                               enable_gqa=True),
         }, n=50 if s == 128 else 10)
         t["max_abs_err_vs_library"] = err
-        out[f"flash_attention S={s}"] = t
+        out[f"flash_attention S={s}" + (" f32" if dt == torch.float32 else "")] = t
 
 
 def time_decode(chip_smoke, ops, dev, g, out):
@@ -188,21 +190,23 @@ def time_decode(chip_smoke, ops, dev, g, out):
     import torch.nn.functional as F
 
     c = 160
-    q = torch.randn(8, 32, 128, generator=g, device=dev).bfloat16()
-    kc, vc = (torch.randn(8, c, 8, 128, generator=g, device=dev).bfloat16() for _ in range(2))
     cur = torch.tensor([0, 17, 31, 32, 100, c - 1, c, c + 11], dtype=torch.int32, device=dev)
-    q4 = q[:, :, None]
-    kt, vt = (z.transpose(1, 2).contiguous() for z in (kc, vc))
     mask = (torch.arange(c, device=dev)[None, :] <= cur[:, None])[:, None, None, :]
+    for dt in (torch.bfloat16, torch.float32):
+        q = torch.randn(8, 32, 128, generator=g, device=dev).to(dt)
+        kc, vc = (torch.randn(8, c, 8, 128, generator=g, device=dev).to(dt) for _ in range(2))
+        q4 = q[:, :, None]
+        kt, vt = (z.transpose(1, 2).contiguous() for z in (kc, vc))
 
-    def library():
-        return F.scaled_dot_product_attention(q4, kt, vt, attn_mask=mask, enable_gqa=True)
+        def library():
+            return F.scaled_dot_product_attention(q4, kt, vt, attn_mask=mask, enable_gqa=True)
 
-    err = float((ops.flash_decode(q, kc, vc, cur).float() - library()[:, :, 0].float()).abs().max())
-    t, _ = chip_smoke.time_ms({"kernel": lambda: ops.flash_decode(q, kc, vc, cur),
-                               "library": library})
-    t["max_abs_err_vs_library"] = err
-    out["flash_decode serving"] = t
+        err = float((ops.flash_decode(q, kc, vc, cur).float()
+                     - library()[:, :, 0].float()).abs().max())
+        t, _ = chip_smoke.time_ms({"kernel": lambda: ops.flash_decode(q, kc, vc, cur),
+                                   "library": library})
+        t["max_abs_err_vs_library"] = err
+        out["flash_decode serving" + (" f32" if dt == torch.float32 else "")] = t
 
 
 def time_scan(chip_smoke, ops, dev, g, out):
