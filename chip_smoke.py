@@ -140,7 +140,22 @@
    profiles its steady decode (casts, GEMMs, ``flash_decode``); and
    checks its prefill against teacher-forced decode at full depth in f32
    (1e-3, K4 and K6 on their f32 kernels at D 160) and bf16 (5e-2).
-14. Prints ``{"kernels": [...]}``, then ``{"ok": true, "device": ...}`` as
+14. xlstm-1.3b (48 layers: 42 ``mlstm``, 6 ``slstm``; 2,047,318,352
+   parameters), which launches no kernel: first the sLSTM alone at (1,
+   4,096, 2,048), forward and backward timed with CUDA events, its
+   launches a time step from profiles at two lengths; every xLSTM path at
+   smoke size in f32 on the card against the CPU (a train step, prefill
+   and its caches, 8 decode steps, teacher-forced decode); training at
+   full width and depth through the launcher (seq 4,096, 4 steps, a
+   finite first loss: the reference's first gradient overflows at this
+   depth, printed a period; no launch); a profile of 2 steps (the sLSTM
+   loop's span on the device's timeline, the rest's device time by
+   class); prefill of 4 x 4,096 and 64 greedy decode steps (the caches'
+   shapes, every ``m`` finite, no launch, ``pos``) with their profiles;
+   teacher-forced decode against prefill at 48 layers (bf16 within twice
+   the bf16 prefill's distance from f32, f32 printed) and on one layer of
+   each kind at full width (f32, 1e-3).
+15. Prints ``{"kernels": [...]}``, then ``{"ok": true, "device": ...}`` as
    the last line.  Any failed check exits non-zero before those lines.
 """
 from __future__ import annotations
@@ -244,6 +259,31 @@ MOE_TRAIN_LAYERS, MOE_TRAIN_SEQ, MOE_TRAIN_STEPS = 4, 4096, 8
 COPIED_CHECKS = (("minitron-8b", None), ("phi4-mini-3.8b", None), ("dbrx-132b", 2),
                  (STABLELM_ARCH, None))
 COPIED_TOKENS = 64
+
+# xlstm-1.3b at published width and depth (42 mlstm and 6 slstm layers):
+# the training path at seq 4096 (16 mLSTM chunks of 256; ``reduced``: 8 ->
+# 2 steps: a step takes ~12 s of host launches, and at the reference's
+# initialisation the first update leaves the weights non-finite, so later
+# steps add times and no check), then prefill of 4 x 4,096 and greedy
+# decode past it
+XLSTM_ARCH = "xlstm-1.3b"
+XLSTM_TRAIN_STEPS = 2
+XLSTM_TRAIN_ARGS = ["--arch", XLSTM_ARCH, "--seq-len", "4096", "--batch", "1",
+                    "--num-records", "64", "--epochs", "1", "--steps", str(XLSTM_TRAIN_STEPS),
+                    "--seed", "0", "--device", "cuda"]
+XLSTM_PROFILE_STEPS = 2
+XLSTM_BATCH, XLSTM_PROMPT, XLSTM_DECODE = 4, 4096, 64
+# teacher-forced tokens at 48 layers (one chunk; ``reduced`` from 512 for
+# time) and on XLSTM_HELD_PATTERN (two chunks)
+XLSTM_TEACHER, XLSTM_TEACHER_HELD = 256, 512
+# the full-width check that holds f32 decode to prefill: one layer of each
+# kind (at 8 layers the reference's own f32 prefill and decode part by
+# 1.5e-2 after 8 tokens: xlstm_teacher_forced_check)
+XLSTM_HELD_PATTERN = ("mlstm", "slstm")
+XLSTM_DECODE_PROFILE = 5
+# the sLSTM alone at the training path's shape (B, S, d_model), and the two
+# short lengths whose profiles give its launches a time step
+SLSTM_SHAPE, SLSTM_COUNT_LENGTHS = (1, 4096, 2048), (64, 128)
 
 SERVE_ARGS = ["--arch", "granite-3-8b", "--serve-mode", "continuous",
               "--max-batch", "8", "--prompt-capacity", "128", "--gen", "32",
@@ -2228,6 +2268,555 @@ def copied_configs_phase(dev):
     _free()
 
 
+# ------------------------------------------------------------ xlstm-1.3b
+
+
+def _device_events(prof):
+    """(name, start ns, duration ns) of every device activity of a
+    ``torch.profiler`` window, in start order, read from the raw Kineto
+    results: the profiler's own ``FunctionEvent`` tree costs ~0.1 ms an
+    event to build, minutes for the xlstm path's ~10^5 launches."""
+    from torch.autograd import DeviceType
+
+    out = [(e.name(), e.start_ns(), e.duration_ns()) for e in prof.profiler.kineto_results.events()
+           if e.device_type() == DeviceType.CUDA]
+    check(bool(out), "the profiler recorded no device activity")
+    return sorted(out, key=lambda e: e[1])
+
+
+def _by_name(events, n, per):
+    """Print the eight kernel names with the most device time, per ``per``."""
+    tot, cnt = {}, {}
+    for name, _, dur in events:
+        tot[name] = tot.get(name, 0) + dur
+        cnt[name] = cnt.get(name, 0) + 1
+    for name in sorted(tot, key=lambda k: -tot[k])[:8]:
+        print(f"    {tot[name] / n / 1e6:9.3f} ms/{per} {cnt[name] // n:7d} calls/{per}  {name[:90]}")
+
+
+class _SLSTMSplit:
+    """Times every ``_SLSTMScan`` forward and backward with a pair of CUDA
+    events (its span on the device's timeline, idle gaps included: the loop
+    is bound by the host's launches) and, with a profiler, stops the
+    profiler's device collection during it: the loop launches ~10^6
+    kernels a training step, more than the trace's buffers hold, so a
+    profile of the path shows the rest of the work."""
+
+    def __init__(self, prof=None):
+        from torch.profiler import ProfilerActivity
+
+        self.prof, self.cuda, self.spans = prof, [ProfilerActivity.CUDA], []
+
+    def __enter__(self):
+        from repro_torch.layers import xlstm
+
+        self.cls = xlstm._SLSTMScan
+        self.fwd, self.bwd = self.cls.forward, self.cls.backward
+
+        def split(fn):
+            def run(ctx, *args):
+                if self.prof is not None:
+                    self.prof.toggle_collection_dynamic(False, self.cuda)
+                start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = fn(ctx, *args)
+                stop.record()
+                if self.prof is not None:
+                    self.prof.toggle_collection_dynamic(True, self.cuda)
+                self.spans.append((start, stop))
+                return out
+            return staticmethod(run)
+
+        self.cls.forward, self.cls.backward = split(self.fwd), split(self.bwd)
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.forward, self.cls.backward = staticmethod(self.fwd), staticmethod(self.bwd)
+
+    def ms(self):
+        """The spans' sum in ms (after a synchronize)."""
+        return sum(a.elapsed_time(b) for a, b in self.spans)
+
+
+def _gemm(name):
+    return any(k in name.lower() for k in ("gemm", "nvjet", "cutlass", "xmma", "sm90_"))
+
+
+def slstm_phase(dev):
+    """The sLSTM alone, first of the xlstm phases: ``slstm_scan`` on one
+    layer of xlstm-1.3b's width (random f32 weights), x of SLSTM_SHAPE in
+    bf16, the recurrence in f32: the forward, and the forward with its
+    backward, timed with CUDA events around eager calls (the loop is
+    bound by the host's launches, which the events' span includes), in
+    turns; then the launches and device time a time step, from the
+    profiles of both at two short lengths (their difference over the
+    difference of lengths).  Returns the times in ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.layers import xlstm
+
+    cfg = get_config(XLSTM_ARCH)
+    heads, dt = cfg.num_heads, torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(7)
+    params = {k: v.requires_grad_() for k, v in
+              xlstm.init_slstm(g, cfg.d_model, heads, torch.float32, dev).items()}
+    x = torch.randn(SLSTM_SHAPE, generator=g, device=dev).to(dt)
+
+    def fwd(x):
+        with torch.no_grad():
+            return xlstm.slstm_scan(params, x, heads, dt)[0]
+
+    def fwd_bwd(x):
+        y, _ = xlstm.slstm_scan(params, x, heads, dt)
+        return torch.autograd.grad(y, list(params.values()), torch.ones_like(y))
+
+    ops.reset_launch_counts()
+    print(f"sLSTM alone at {SLSTM_SHAPE} (xlstm-1.3b's width, {heads} heads of "
+          f"{cfg.d_model // heads}), bf16 compute, f32 recurrence:")
+    fns = {"forward": fwd, "forward+backward": fwd_bwd}
+    for f in fns.values():
+        f(x)
+    times = {k: [] for k in fns}
+    for r in range(2):
+        for k in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            fns[k](x)
+            stop.record()
+            torch.cuda.synchronize()
+            times[k].append(start.elapsed_time(stop))
+    check(all(v == 0 for v in ops.LAUNCHES.values()), f"the sLSTM launched kernels {ops.LAUNCHES}")
+    ms = {k: min(v) for k, v in times.items()}
+    steps = SLSTM_SHAPE[1]
+    for k in fns:
+        print(f"  {k}: {times[k]} ms (CUDA events, eager), {1e3 * ms[k] / steps:.2f} us a time step")
+    counts = {}
+    for k, f in fns.items():
+        for s in SLSTM_COUNT_LENGTHS:
+            xs = x[:, :s].contiguous()
+            f(xs)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                f(xs)
+                torch.cuda.synchronize()
+            ev = _device_events(prof)
+            counts[k, s] = (len(ev), sum(e[2] for e in ev))
+        (n0, d0), (n1, d1) = counts[k, SLSTM_COUNT_LENGTHS[0]], counts[k, SLSTM_COUNT_LENGTHS[1]]
+        ds = SLSTM_COUNT_LENGTHS[1] - SLSTM_COUNT_LENGTHS[0]
+        per_step, dev_us = (n1 - n0) / ds, (d1 - d0) / ds / 1e3
+        ms[k + " launches/step"], ms[k + " device us/step"] = per_step, dev_us
+        print(f"  {k}: {per_step:.2f} device launches a time step, {dev_us:.2f} us of device a "
+              f"time step (profiles at S = {SLSTM_COUNT_LENGTHS}: {n0} and {n1} launches)")
+    del params, x
+    _free()
+    return ms
+
+
+def xlstm_card_vs_cpu_check(dev):
+    """Every xLSTM path at smoke size (``mlstm`` and ``slstm`` blocks, d
+    64, chunk 16) in f32 on the card against the same on the CPU, from the
+    same weights and tokens: one train step (loss and gradient norm; the
+    clipped gradients, from the first moments, to 1e-4 of each leaf's
+    largest entry), the prefill's logits at 1e-4 and every cache leaf to
+    1e-4 of its largest entry, 8 decode steps at F32_LOGITS_TOL (the card
+    and the CPU sum the states' products in other orders, and the
+    recurrent steps carry the difference: 2.1e-4 on an H100); then
+    teacher-forced decode from an empty cache against prefill on the
+    card, at F32_LOGITS_TOL.  No kernel launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.train.optimizer import AdamW, AdamWConfig
+    from repro_torch.train.steps import init_train_state, make_train_step
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    cfg = get_config(XLSTM_ARCH, smoke=True).replace(dtype="float32")
+    print(f"{XLSTM_ARCH} smoke (f32) on the card vs on the CPU:")
+    ops.reset_launch_counts()
+    opt_cfg = AdamWConfig(lr=3e-3, warmup_steps=2)
+    toks = torch.randint(1, cfg.vocab_size, (2, 41), generator=torch.Generator().manual_seed(6))
+    batch = {"tokens": toks[:, :32], "labels": toks[:, 1:33]}
+    init = init_train_state(cfg, torch.Generator().manual_seed(1), AdamW(opt_cfg), "cpu")
+    outs = {}
+    for d in ("cpu", dev):
+        state = tree_map(lambda x: x.clone().to(d), init)
+        state, out = make_train_step(cfg, AdamW(opt_cfg))(state, {k: v.to(d) for k, v in batch.items()})
+        params = tree_map(lambda x: x.to(d), init["params"])
+        cache, pre = M.prefill(cfg, params, toks[:, :32].to(d))
+        pre_leaves = [x.clone() for x in tree_leaves(cache["stages"])]
+        steps = []
+        for t in range(32, 40):
+            cache, logits = M.decode_step(cfg, params, cache, toks[:, t:t + 1].to(d))
+            steps.append(logits)
+        outs[d] = (state, {k: float(v) for k, v in out.items()}, pre, pre_leaves, steps)
+    (cs, co, cpre, cleaves, csteps), (gs, go, gpre, gleaves, gsteps) = outs["cpu"], outs[dev]
+    for k, tol in (("loss", 1e-5), ("grad_norm", 1e-4)):
+        err = abs(go[k] - co[k]) / abs(co[k])
+        print(f"  train step {k}: card {go[k]:.7f}, CPU {co[k]:.7f}, relative error {err:.2e} "
+              f"(tol {tol:g})")
+        check(err <= tol, f"train step {k} differs")
+    worst = max(float((g.cpu() - c).abs().max()) / max(float(c.abs().max()), 1e-30)
+                for g, c in zip(tree_leaves(gs["opt"]["mu"]), tree_leaves(cs["opt"]["mu"])))
+    print(f"  the step's gradients (first moments): worst leaf {worst:.2e} of its largest entry "
+          "(tol 1e-4)")
+    check(worst <= 1e-4, "the train step's gradients differ")
+    compare(f"prefill logits {tuple(gpre.shape)}", gpre.cpu(), cpre, 1e-4)
+    worst = max(float((g.cpu() - c).abs().max()) / max(float(c.abs().max()), 1e-30)
+                for g, c in zip(gleaves, cleaves))
+    print(f"  prefill cache: {len(gleaves)} leaves, worst |card - CPU| {worst:.2e} of the leaf's "
+          "largest entry (tol 1e-4)")
+    check(worst <= 1e-4, "a prefill cache leaf differs")
+    compare(f"8 decode steps' logits {tuple(gsteps[0].shape)}", torch.stack(gsteps).cpu(),
+            torch.stack(csteps), F32_LOGITS_TOL)
+    params = tree_map(lambda x: x.to(dev), init["params"])
+    t_toks = toks[:1, :32].to(dev)
+    _, want = M.prefill(cfg, params, t_toks)
+    cache = M.init_decode_cache(cfg, 1, 32, dev)
+    for t in range(32):
+        cache, got = M.decode_step(cfg, params, cache, t_toks[:, t:t + 1])
+    compare("on the card: 32 teacher-forced decode steps vs prefill", got, want, F32_LOGITS_TOL)
+    check(all(v == 0 for v in ops.LAUNCHES.values()), f"the xlstm path launched kernels {ops.LAUNCHES}")
+
+
+def xlstm_train_phase(dev):
+    """The LM training path at xlstm-1.3b's full width and depth through
+    the launcher (XLSTM_TRAIN_ARGS: f32 weights, bf16 compute, the default
+    ``remat="dots"``): XLSTM_TRAIN_STEPS steps, a finite first loss and no
+    kernel launch (no kernel is on this path).  At the reference's
+    initialisation the first gradient overflows in the lowest layers
+    (``_gradient_by_period``; JAX's own gradient grows ~2e5 over one
+    period at this width: ``tools/kernel_xlstm_depth.py``,
+    ``tests/test_torch_xlstm.py::test_full_width_period_matches_jax_as_closely_as_a_rounding_of_its_weights``),
+    so the later losses are not finite: printed, not held.  Prints the
+    losses, the step times, Eq. 1's numbers and the peak memory."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    _free()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = get_config(XLSTM_ARCH)
+    n_slstm = sum(p.count("slstm") * r for p, r in cfg.stages)
+    print(f"training {XLSTM_ARCH} at full width ({cfg.num_layers} layers, {n_slstm} sLSTM, remat "
+          f"{cfg.remat!r}):", " ".join(XLSTM_TRAIN_ARGS))
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    summary = train.main(XLSTM_TRAIN_ARGS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    steps, secs = summary["steps"], summary["step_seconds"]
+    med = statistics.median(secs[1:])
+    print(f"  run incl. init and data {wall:.1f} s; launches {launches}")
+    print(f"  losses {summary['losses']}")
+    print(f"  step seconds {[round(x, 4) for x in secs]}; median of steps 2-{steps} {med:.4f} s "
+          f"({4096 / med:.0f} tokens/s)")
+    print(f"  Eq. 1: t_load {summary['t_load']:.4f} s, t_comp {summary['t_comp']:.4f} s, t_overlap "
+          f"{summary['t_overlap']:.4f} s, t_unhidden_load {summary['t_unhidden_load']:.4f} s; peak "
+          f"memory {summary['peak_memory_gib']:.2f} GiB")
+    losses = summary["losses"]
+    check(steps == XLSTM_TRAIN_STEPS and len(losses) == steps,
+          f"{steps} steps, want {XLSTM_TRAIN_STEPS}")
+    check(bool(np.isfinite(losses[0])), f"the first loss {losses[0]} is not finite")
+    if not all(np.isfinite(losses)):
+        print("  the losses after the first update are not finite: the first step's gradient "
+              "overflows in the lowest layers (xlstm_train_profile prints it a period)")
+    check(all(v == 0 for v in launches.values()) and not ops.ENTRY_LAUNCHES,
+          f"the xlstm training path launched kernels: {launches}")
+    card_gib = torch.cuda.get_device_properties(dev).total_memory / 2**30
+    check(summary["peak_memory_gib"] <= card_gib - 5,
+          f"peak {summary['peak_memory_gib']:.2f} of the card's {card_gib:.2f} GiB")
+    return med
+
+
+def _gradient_by_period(cfg, params, batch):
+    """The first step's gradient at full depth (``loss_fn`` and autograd):
+    the largest |gradient| of each period's first mLSTM ``w_down`` and its
+    sLSTM ``w_in``, top period last.  Holds the top period finite (the
+    backward through it is sound); at the reference's initialisation the
+    gradient grows ~10^7 a period downwards and overflows in the lowest."""
+    from repro_torch.models import model as M
+    from repro_torch.utils.tree import tree_leaves, tree_unflatten
+
+    leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+    tree = tree_unflatten(params, leaves)
+    loss, _ = M.loss_fn(cfg, tree, batch)
+    grads = dict(zip(map(id, leaves), torch.autograd.grad(loss, leaves)))
+    stage = tree["stages"][0]
+    for label, leaf in (("mLSTM w_down", stage[0]["mlstm"]["w_down"]),
+                        ("sLSTM w_in", stage[-1]["slstm"]["w_in"])):
+        g = grads[id(leaf)]
+        per = [float(x.abs().max()) for x in g.float()]
+        print(f"  first-step |gradient| max by period, {label}: " + ", ".join(f"{v:.3e}" for v in per))
+        check(bool(torch.isfinite(g[-1]).all()), f"the top period's {label} gradient is not finite")
+    del grads, leaves
+    _free()
+
+
+def xlstm_train_profile(dev, slstm, steps=XLSTM_PROFILE_STEPS):
+    """Where an xlstm-1.3b training step's time goes (``"dots"``): after
+    ``_gradient_by_period`` (which warms up), ``steps`` steps on the host
+    clock with every sLSTM
+    forward and backward timed on the device's timeline (the sLSTM loop's
+    share of the step, in place); then ``steps`` under the profiler
+    (device activity only, the sLSTM loop left out: ``_SLSTMSplit``):
+    device time by class (GEMM, other elementwise and copies) and the
+    busy share, the loop's own device time from ``slstm_phase``'s
+    per-step profile."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.train.optimizer import AdamW, AdamWConfig
+    from repro_torch.train.steps import init_train_state, make_train_step
+
+    _free()
+    cfg = get_config(XLSTM_ARCH)
+    n_slstm = sum(p.count("slstm") * r for p, r in cfg.stages)
+    opt = AdamW(AdamWConfig(lr=1e-3, warmup_steps=10))
+    state = init_train_state(cfg, torch.Generator(device=dev).manual_seed(1), opt, dev)
+    step = make_train_step(cfg, opt)
+    toks = torch.randint(0, cfg.vocab_size, (1, 4097), dtype=torch.int32,
+                         generator=torch.Generator(device=dev).manual_seed(2), device=dev)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    _gradient_by_period(cfg, state["params"], batch)  # and the warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    norms = []
+    with _SLSTMSplit() as timed:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, out = step(state, batch)
+            norms.append(float(out["grad_norm"]))
+        torch.cuda.synchronize()
+        plain = 1e3 * (time.perf_counter() - t0) / steps
+    check(len(timed.spans) == 2 * n_slstm * steps,
+          f"{len(timed.spans)} sLSTM forwards and backwards, want {2 * n_slstm * steps}")
+    loop = timed.ms() / steps
+    with profile(activities=[ProfilerActivity.CUDA]) as prof, _SLSTMSplit(prof) as split:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, out = step(state, batch)
+            float(out["loss"])
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0) / steps
+    t0 = time.perf_counter()
+    events = _device_events(prof)
+    busy = sum(e[2] for e in events) / steps / 1e6
+    gemm = sum(e[2] for e in events if _gemm(e[0])) / steps / 1e6
+    loop_dev = n_slstm * SLSTM_SHAPE[1] * slstm["forward+backward device us/step"] / 1e3
+    print(f"profile of {steps} xlstm-1.3b training steps (remat 'dots', seq 4096): wall "
+          f"{plain:.1f} ms/step unprofiled, {wall:.1f} under the profiler; gradient norms {norms}; "
+          f"peak memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    print(f"  the sLSTM loop ({n_slstm} layers, forward and backward): {loop:.1f} ms/step on the "
+          f"device's timeline, {loop / plain:.3f} of the step; its device time {loop_dev:.1f} "
+          f"ms/step (slstm_phase's {slstm['forward+backward device us/step']:.2f} us a layer and "
+          f"time step), {n_slstm * SLSTM_SHAPE[1] * slstm['forward+backward launches/step']:.0f} "
+          "launches a step")
+    print(f"  outside the loop: device busy {busy:.1f} ms/step (GEMM {gemm:.1f}, other "
+          f"elementwise and copies {busy - gemm:.1f}), {len(events) / steps:.0f} device ops/step; "
+          f"the step's busy share {(busy + loop_dev) / plain:.3f} (the loop's device time "
+          f"included; trace read in {time.perf_counter() - t0:.1f} s)")
+    check(len(split.spans) == 2 * n_slstm * steps, "the profiled steps ran another sLSTM count")
+    _by_name(events, steps, "step")
+    del state, out, prof
+    _free()
+
+
+def xlstm_decode_phase(dev, slstm):
+    """xlstm-1.3b at published width and depth (random f32 weights from
+    seed 0, bf16 compute) through the step functions: prefill
+    XLSTM_BATCH x XLSTM_PROMPT tokens, then XLSTM_DECODE greedy decode
+    steps, each count from 0 just before.  Checks the cache's leaf
+    shapes, every ``m`` finite and past the -1e30 start after the
+    prefill, no kernel launch, finite logits and ``pos``.  Prints prefill
+    ms, decode ms a step, tokens/s and peak memory, and the device time
+    and busy share of XLSTM_DECODE_PROFILE decode steps and of one
+    prefill (the sLSTM loop's device time from ``slstm_phase``'s per-step
+    profile); then the teacher-forced check."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.layers.xlstm import mlstm_width
+    from repro_torch.models import model as M
+    from repro_torch.train.steps import make_decode_step, make_prefill_step
+
+    _free()
+    cfg = get_config(XLSTM_ARCH)
+    b, heads = XLSTM_BATCH, cfg.num_heads
+    hd_m, hd_s = mlstm_width(cfg.d_model, cfg.mlstm_proj_factor) // heads, cfg.d_model // heads
+    print(f"{XLSTM_ARCH} prefill and decode at full width ({cfg.num_layers} layers, bf16 compute, "
+          f"{M.param_count(cfg):,} parameters): prefill {b} x {XLSTM_PROMPT}, {XLSTM_DECODE} decode "
+          "steps")
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    toks = torch.randint(1, cfg.vocab_size, (b, XLSTM_PROMPT),
+                         generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    cache, logits = prefill(params, toks)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    check(all(v == 0 for v in ops.LAUNCHES.values()), f"prefill launched kernels {ops.LAUNCHES}")
+    print(f"  prefill {1e3 * prefill_s:.1f} ms ({b * XLSTM_PROMPT / prefill_s:.0f} tokens/s), peak "
+          f"memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    check(bool(torch.isfinite(logits).all()), "prefill logits not finite")
+    (pattern, repeats), = cfg.stages
+    want = {"mlstm": {"C": (b, heads, hd_m, hd_m), "n": (b, heads, hd_m), "m": (b, heads)},
+            "slstm": {k: (b, heads, hd_s) for k in "cnmh"}}
+    for kind, leaves in zip(pattern, cache["stages"][0]):
+        check({k: tuple(v.shape) for k, v in leaves.items()}
+              == {k: (repeats,) + s for k, s in want[kind].items()},
+              f"{kind} cache {[tuple(v.shape) for v in leaves.values()]}")
+        check(all(v.dtype == torch.float32 for v in leaves.values()), f"{kind} cache dtypes")
+        m = leaves["m"]
+        check(bool(torch.isfinite(m).all()) and bool((m > -1e29).all()),
+              f"{kind} m after prefill: min {float(m.min()):.3e}")
+    print(f"  cache: {len(pattern) * repeats} layers' states, "
+          f"{sum(v.numel() * 4 for leaves in cache['stages'][0] for v in leaves.values()) / 2**30:.2f}"
+          " GiB in f32; every m finite")
+    tok = _greedy(logits)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(XLSTM_DECODE):
+        cache, logits = decode(params, cache, tok)
+        tok = _greedy(logits)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    check(all(v == 0 for v in ops.LAUNCHES.values()) and not ops.ENTRY_LAUNCHES,
+          f"decode launched kernels {ops.LAUNCHES}")
+    check(bool(torch.isfinite(logits).all()), "decode logits not finite")
+    check(int(cache["pos"]) == XLSTM_PROMPT + XLSTM_DECODE, f"pos {int(cache['pos'])}")
+    print(f"  decode {1e3 * decode_s / XLSTM_DECODE:.2f} ms a step (host clock, {b} rows, "
+          f"{b * XLSTM_DECODE / decode_s:.0f} tokens/s); peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof, _SLSTMSplit() as split:
+        t0 = time.perf_counter()
+        for _ in range(XLSTM_DECODE_PROFILE):
+            cache, logits = decode(params, cache, tok)
+            tok = _greedy(logits)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = _device_events(prof)
+    busy = sum(e[2] for e in events) / XLSTM_DECODE_PROFILE / 1e6
+    print(f"  profile of {XLSTM_DECODE_PROFILE} decode steps: wall "
+          f"{1e3 * wall / XLSTM_DECODE_PROFILE:.2f} ms/step under the profiler, device busy "
+          f"{busy:.2f} ms/step, {len(events) / XLSTM_DECODE_PROFILE:.0f} device ops/step; busy "
+          f"share {busy / (1e3 * decode_s / XLSTM_DECODE):.3f} of the unprofiled step; the sLSTM "
+          f"layers' spans {split.ms() / XLSTM_DECODE_PROFILE:.2f} ms/step")
+    _by_name(events, XLSTM_DECODE_PROFILE, "step")
+    del cache, logits
+    _free()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof, _SLSTMSplit(prof) as split:
+        t0 = time.perf_counter()
+        prefill(params, toks)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    events = _device_events(prof)
+    busy = sum(e[2] for e in events) / 1e6
+    loop = split.ms()
+    n_slstm = sum(p.count("slstm") * r for p, r in cfg.stages)
+    loop_dev = n_slstm * XLSTM_PROMPT * slstm["forward device us/step"] / 1e3
+    print(f"  profile of one prefill ({wall:.1f} ms under the profiler): the sLSTM loop "
+          f"{loop:.1f} ms on the device's timeline ({loop / (1e3 * prefill_s):.3f} of the "
+          f"unprofiled prefill), ~{loop_dev:.1f} ms of device at B = 1's rate; outside it device "
+          f"busy {busy:.1f} ms, {len(events)} device ops; busy share "
+          f"{(busy + loop_dev) / (1e3 * prefill_s):.3f}")
+    _by_name(events, 1, "prefill")
+    xlstm_teacher_forced_check(cfg, params, dev)
+    del params
+    _free()
+
+
+def _teacher_forced_xlstm(cfg, params, toks, dev):
+    """{dtype: (last decode logits, prefill logits)} in f32 and bf16
+    compute: ``len(toks)`` decode steps from ``init_decode_cache`` (the
+    stabilisers at -1e30) against ``prefill`` over the same tokens; no
+    kernel launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+
+    n = toks.shape[1]
+    ops.reset_launch_counts()
+    runs = {}
+    for dtype in ("float32", "bfloat16"):
+        c = cfg.replace(dtype=dtype)
+        _, want = M.prefill(c, params, toks)
+        cache = M.init_decode_cache(c, 1, n, dev)
+        for i in range(n):
+            cache, got = M.decode_step(c, params, cache, toks[:, i:i + 1])
+        runs[dtype] = (got.float(), want.float())
+    torch.cuda.synchronize()
+    check(all(v == 0 for v in ops.LAUNCHES.values()), f"the check launched kernels {ops.LAUNCHES}")
+    return runs
+
+
+def xlstm_teacher_forced_check(cfg, params, dev):
+    """The form of ``tests/test_models.py::test_decode_matches_prefill_logits``
+    at full width: XLSTM_TEACHER decode steps from an empty cache against
+    ``prefill`` over the same tokens (one chunk of the chunkwise mLSTM;
+    XLSTM_TEACHER_HELD, two chunks, for the held check).
+
+    Nothing is held at 48 layers: f32 and bf16 are printed.  The reference
+    is ill-conditioned at this width and initialisation: at 8 layers JAX's
+    own f32 decode lies 1.5e-2 from its own prefill after 8 tokens
+    (``tools/kernel_xlstm_depth.py``; held in
+    ``tests/test_torch_xlstm.py::test_full_width_teacher_forced_decode_parts_from_prefill_in_jax_too``),
+    and 48 layers make it O(1).  f32 is held at F32_LOGITS_TOL on one
+    layer of each kind (XLSTM_HELD_PATTERN, the full config's first mLSTM
+    and its sLSTM, full width), the check that the caches carry the
+    state; the same run from a cache whose stabilisers start at 0 (the
+    fault ``init_decode_cache`` had) must fall outside it.  bf16 there is
+    printed: its rounding (~3e-2) hides that fault."""
+    from repro_torch.models import model as M
+
+    toks = torch.randint(1, cfg.vocab_size, (1, XLSTM_TEACHER),
+                         generator=torch.Generator(device=dev).manual_seed(2), device=dev)
+    t0 = time.perf_counter()
+    runs = _teacher_forced_xlstm(cfg, params, toks, dev)
+    (got32, want32), (got16, want16) = runs["float32"], runs["bfloat16"]
+    print(f"  teacher-forced decode of {XLSTM_TEACHER} tokens vs prefill, {cfg.num_layers} layers "
+          f"({time.perf_counter() - t0:.1f} s; logits max |{float(want32.abs().max()):.3f}|): f32 "
+          f"max_abs_err {float((got32 - want32).abs().max()):.3e}, bf16 "
+          f"{float((got16 - want16).abs().max()):.3e}, the bf16 prefill "
+          f"{float((want16 - want32).abs().max()):.3e} from the f32 one (none held)")
+    check(bool(torch.isfinite(got32).all() and torch.isfinite(got16).all()), "logits not finite")
+    (pattern, _), = cfg.stages
+    pick = [pattern.index(kind) for kind in XLSTM_HELD_PATTERN]
+    held = cfg.replace(stages=((XLSTM_HELD_PATTERN, 1),))
+    sub = dict(params, stages=[tuple(
+        {k: ({kk: vv[:1] for kk, vv in v.items()} if isinstance(v, dict) else v[:1])
+         for k, v in params["stages"][0][i].items()} for i in pick)])
+    toks = torch.randint(1, cfg.vocab_size, (1, XLSTM_TEACHER_HELD),
+                         generator=torch.Generator(device=dev).manual_seed(3), device=dev)
+    runs = _teacher_forced_xlstm(held, sub, toks, dev)
+    (got32, want32), (got16, want16) = runs["float32"], runs["bfloat16"]
+    print(f"  {held.num_layers} layers ({', '.join(XLSTM_HELD_PATTERN)}), {XLSTM_TEACHER_HELD} "
+          f"tokens: bf16 max_abs_err {float((got16 - want16).abs().max()):.3e}, the bf16 prefill "
+          f"{float((want16 - want32).abs().max()):.3e} from the f32 one (not held)")
+    compare(f"{held.num_layers} layers, f32 last logits {tuple(got32.shape)}", got32, want32,
+            F32_LOGITS_TOL)
+    f32 = held.replace(dtype="float32")
+    cache = M.init_decode_cache(f32, 1, XLSTM_TEACHER_HELD, dev)
+    for leaves in cache["stages"][0]:
+        leaves["m"].zero_()
+    for i in range(XLSTM_TEACHER_HELD):
+        cache, got = M.decode_step(f32, sub, cache, toks[:, i:i + 1])
+    err = (got.float() - want32).abs()
+    print(f"  the same f32 decode from stabilisers at 0: max_abs_err {float(err.max()):.3e} (must "
+          f"fall outside tol {F32_LOGITS_TOL:g})")
+    check(bool((err > F32_LOGITS_TOL + F32_LOGITS_TOL * want32.abs()).any()),
+          "the held check cannot tell a cache with m = 0 from a sound one")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2298,6 +2887,15 @@ def main() -> int:
     t0 = time.perf_counter()
     copied_configs_phase(dev)
     print(f"copied-config phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    slstm = slstm_phase(dev)
+    xlstm_card_vs_cpu_check(dev)
+    xlstm_train_phase(dev)
+    xlstm_train_profile(dev, slstm)
+    print(f"{XLSTM_ARCH} training phases {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    xlstm_decode_phase(dev, slstm)
+    print(f"{XLSTM_ARCH} prefill and decode phase {time.perf_counter() - t0:.1f} s")
     for row in rows:
         if row["name"] == "flash_decode":
             row["head_dim_256"] = dict(wide_decode, launches=rg_launches["flash_decode"])

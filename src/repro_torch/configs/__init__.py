@@ -19,6 +19,7 @@ _MODULES = {
     "qwen2-moe-a2.7b": "repro_torch.configs.qwen2_moe_a2_7b",
     "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
     "stablelm-12b": "repro_torch.configs.stablelm_12b",
+    "xlstm-1.3b": "repro_torch.configs.xlstm_1_3b",
 }
 
 ARCH_IDS: List[str] = list(_MODULES)

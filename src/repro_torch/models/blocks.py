@@ -1,14 +1,16 @@
 """Block-level init/apply dispatch.
 
 A *block* is one residual unit of a stage pattern.  The port runs the
-``attn``, ``local_attn``, ``rglru`` and ``moe`` kinds in the JAX
-package's three modes:
+``attn``, ``local_attn``, ``rglru``, ``moe``, ``mlstm`` and ``slstm``
+kinds in the JAX package's three modes:
     train    full sequence, no cache
     prefill  full sequence, emits a decode cache
     decode   one token, updates its cache in place and returns it
 Blocks return ``(x, cache, aux)``, ``aux`` the MoE load-balancing loss of
 a ``moe`` block (an f32 scalar) and ``0.0`` for the other kinds.  A
-``moe`` block is an ``attn`` block whose FFN is ``layers/moe.py``'s.
+``moe`` block is an ``attn`` block whose FFN is ``layers/moe.py``'s; an
+``mlstm`` block is the mLSTM layer alone (no second norm, no FFN), an
+``slstm`` block the sLSTM layer and a GeGLU FFN of ``_slstm_ff`` units.
 Decode (``M.decode_step``) takes one scalar position for the batch, or,
 for ``attn`` and ``moe`` blocks, one position per row (continuous
 batching, the JAX package's ``M.decode_step_slots``); both write and
@@ -29,12 +31,13 @@ import torch
 from repro_torch.layers import attention as attn
 from repro_torch.layers import moe as moe_lib
 from repro_torch.layers import rglru as rglru_lib
+from repro_torch.layers import xlstm as xlstm_lib
 from repro_torch.layers.common import rms_norm, segment
 from repro_torch.layers.mlp import apply_ffn, init_ffn
 from repro_torch.layers.positional import apply_rope
 from repro_torch.models.config import ModelConfig
 
-PORTED_KINDS = ("attn", "local_attn", "rglru", "moe")
+PORTED_KINDS = ("attn", "local_attn", "rglru", "moe", "mlstm", "slstm")
 ATTN_IMPLS = ("full", "blocked")
 
 
@@ -45,31 +48,58 @@ def _check_kind(kind: str) -> None:
         )
 
 
+def _slstm_ff(cfg: ModelConfig) -> int:
+    # xLSTM sLSTM blocks use a ~4/3 GeGLU FFN even when cfg.d_ff == 0.
+    if cfg.d_ff:
+        return cfg.d_ff
+    return ((int(cfg.d_model * 4 / 3) + 127) // 128) * 128
+
+
 def init_block(generator, kind: str, cfg: ModelConfig, device):
     _check_kind(kind)
     dt = cfg.store_dtype
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.kq_dim
     p: Dict[str, Any] = {"norm1": torch.zeros((d,), dtype=dt, device=device)}
+    if kind == "mlstm":
+        p["mlstm"] = xlstm_lib.init_mlstm(generator, d, h, cfg.mlstm_proj_factor, dt, device)
+        return p
     if kind == "rglru":
         p["rglru"] = rglru_lib.init_rglru(generator, d, cfg.rnn_width or d, cfg.conv_width,
                                           dt, device, cfg.num_heads)
+    elif kind == "slstm":
+        p["slstm"] = xlstm_lib.init_slstm(generator, d, h, dt, device)
     else:
         p["attn"] = attn.init_attn(generator, d, h, kv, hd, dt, device)
     p["norm2"] = torch.zeros((d,), dtype=dt, device=device)
     if kind == "moe":
         p["moe"] = moe_lib.init_moe(generator, cfg, cfg.moe, dt, device)
+    elif kind == "slstm":
+        p["ffn"] = init_ffn(generator, d, _slstm_ff(cfg), "geglu", dt, device)
     else:
         p["ffn"] = init_ffn(generator, d, cfg.d_ff, cfg.activation, dt, device)
     return p
 
 
 def init_cache(kind: str, cfg: ModelConfig, batch: int, capacity: int, device):
-    """Zeroed per-block decode cache: K/V (B, C, K, D) for ``attn`` and ``moe``, a ring
-    of ``min(window, C)`` slots for ``local_attn``, both in the compute
-    dtype; for ``rglru`` the state ``h`` (B, W) in f32 and the conv
-    history (B, CW-1, W) in the compute dtype."""
+    """Per-block decode cache: zeroed K/V (B, C, K, D) for ``attn`` and
+    ``moe``, a ring of ``min(window, C)`` slots for ``local_attn``, both in
+    the compute dtype; for ``rglru`` the state ``h`` (B, W) in f32 and the
+    conv history (B, CW-1, W) in the compute dtype; for ``mlstm`` ``C``
+    (B, H, hd, hd), ``n`` (B, H, hd) and ``m`` (B, H), for ``slstm`` ``c``,
+    ``n``, ``m`` and ``h`` (B, H, hd), all f32, zero but the stabiliser
+    ``m`` at ``xlstm.SENTINEL``."""
     _check_kind(kind)
     dt = cfg.compute_dtype
+    f32 = dict(dtype=torch.float32, device=device)
+    if kind == "mlstm":
+        hd = xlstm_lib.mlstm_width(cfg.d_model, cfg.mlstm_proj_factor) // cfg.num_heads
+        return {"C": torch.zeros((batch, cfg.num_heads, hd, hd), **f32),
+                "n": torch.zeros((batch, cfg.num_heads, hd), **f32),
+                "m": torch.full((batch, cfg.num_heads), xlstm_lib.SENTINEL, **f32)}
+    if kind == "slstm":
+        shape = (batch, cfg.num_heads, cfg.d_model // cfg.num_heads)
+        return {"c": torch.zeros(shape, **f32), "n": torch.zeros(shape, **f32),
+                "m": torch.full(shape, xlstm_lib.SENTINEL, **f32), "h": torch.zeros(shape, **f32)}
     if kind == "rglru":
         w = cfg.rnn_width or cfg.d_model
         return {
@@ -163,6 +193,32 @@ def _rglru(p, x, cfg: ModelConfig, mode: str, cache, ckpt: bool):
     return o, ({"h": hs, "conv": hist.to(dt)} if mode == "prefill" else None)
 
 
+def _mlstm(p, x, cfg: ModelConfig, mode: str, cache, ckpt: bool):
+    dt = cfg.compute_dtype
+    if mode == "decode":
+        o, state = xlstm_lib.mlstm_step(p["mlstm"], x, (cache["C"], cache["n"], cache["m"]),
+                                        cfg.num_heads, dt)
+        for key, new in zip(("C", "n", "m"), state):
+            cache[key].copy_(new)  # in place, as the attention caches
+        return o, cache
+    o, (C, n, m) = xlstm_lib.mlstm_chunkwise(p["mlstm"], x, cfg.num_heads, cfg.mlstm_chunk, dt,
+                                             ckpt=ckpt)
+    return o, ({"C": C, "n": n, "m": m} if mode == "prefill" else None)
+
+
+def _slstm(p, x, cfg: ModelConfig, mode: str, cache):
+    dt = cfg.compute_dtype
+    keys = ("c", "n", "m", "h")
+    if mode == "decode":
+        o, state = xlstm_lib.slstm_step(p["slstm"], x, tuple(cache[k] for k in keys),
+                                        cfg.num_heads, dt)
+        for key, new in zip(keys, state):
+            cache[key].copy_(new)
+        return o, cache
+    o, state = xlstm_lib.slstm_scan(p["slstm"], x, cfg.num_heads, dt)
+    return o, (dict(zip(keys, state)) if mode == "prefill" else None)
+
+
 def apply_block(
     kind: str,
     p,
@@ -183,8 +239,13 @@ def apply_block(
     ckpt = bool(aux.get("remat_segments"))
     dt = cfg.compute_dtype
     h = segment(ckpt, rms_norm, x, p["norm1"], cfg.norm_eps)
+    if kind == "mlstm":
+        o, new_cache = _mlstm(p, h, cfg, mode, cache, ckpt)
+        return x + o, new_cache, 0.0
     if kind == "rglru":
         o, new_cache = _rglru(p, h, cfg, mode, cache, ckpt)
+    elif kind == "slstm":
+        o, new_cache = _slstm(p, h, cfg, mode, cache)
     else:
         o, new_cache = _self_attention(p, h, cfg, kind, mode, cache, pos, aux, ckpt)
     x = x + o
@@ -192,4 +253,5 @@ def apply_block(
     if kind == "moe":
         y, aloss = moe_lib.apply_moe(p["moe"], h2, cfg, cfg.moe, dt, ckpt)
         return x + y, new_cache, aloss
-    return x + apply_ffn(p["ffn"], h2, cfg.activation, dt, ckpt), new_cache, 0.0
+    act = "geglu" if kind == "slstm" else cfg.activation
+    return x + apply_ffn(p["ffn"], h2, act, dt, ckpt), new_cache, 0.0

@@ -11,7 +11,8 @@ dicts whose leaves are stacked on a leading ``repeats`` axis.  Decode
 caches likewise: ``{"pos": () or (B,) int32, "stages": [tuple of per-kind
 leaves stacked (L, ...)]}``, the kinds' leaves as ``blocks.init_cache``
 makes them (``attn`` and ``moe`` K/V, ``local_attn`` rings, ``rglru``
-``h`` and ``conv``).  A Python loop over the stacked layers takes the
+``h`` and ``conv``, ``mlstm`` ``C``/``n``/``m`` and ``slstm``
+``c``/``n``/``m``/``h``).  A Python loop over the stacked layers takes the
 place of ``lax.scan``.
 
 Training rematerialises as the JAX package's ``_remat_wrap`` does, with
@@ -355,14 +356,17 @@ def write_prefill_slot(cfg: ModelConfig, arena, slot: int, pre):
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, capacity: int, device, pos=0):
-    """A zeroed decode cache; mirrors prefill's structure."""
+    """An empty decode cache; mirrors prefill's structure.  Each leaf
+    repeats ``blocks.init_cache``'s values over the stacked layers, as
+    JAX's broadcast does: zeros, but the xLSTM stabilisers ``m`` at
+    ``xlstm.SENTINEL``."""
     stages = []
     for pattern, repeats in cfg.stages:
         per_pos = []
         for kind in pattern:
             one = init_cache(kind, cfg, batch, capacity, device)
             per_pos.append(tree_map(
-                lambda x: x.new_zeros((repeats,) + tuple(x.shape)), one
+                lambda x: x.expand((repeats,) + tuple(x.shape)).contiguous(), one
             ))
         stages.append(tuple(per_pos))
     pos = torch.as_tensor(pos, dtype=torch.int32, device=device)

@@ -25,11 +25,13 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import get_config as jax_config
 from repro.configs.granite_3_8b import smoke_config as jax_granite
 from repro.configs.recurrentgemma_2b import smoke_config as jax_rg
 from repro.layers import attention as jattn
 from repro.layers import rglru as jrglru
 from repro.models import model as jm
+from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.configs.granite_3_8b import smoke_config as torch_granite
 from repro_torch.configs.recurrentgemma_2b import smoke_config as torch_rg
 from repro_torch.layers import attention as tattn
@@ -241,6 +243,26 @@ def test_scalar_decode_past_the_arena_clamps_as_jax(granite):
         _close(tl, jl, 1e-4)
         for name, got, ref in _cache_leaves(jcache, tcache):
             _close(got, ref, 1e-4)
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_init_decode_cache_equals_jax_leaf_for_leaf(arch):
+    """Every leaf of an empty decode cache, dtype and value, equals JAX's
+    ``init_decode_cache``: zeros, but the xLSTM stabilisers ``m`` at
+    -1e30 (JAX broadcasts ``blocks.init_cache``'s values over the stacked
+    layers; a cache of zeros would start m at 0)."""
+    jcache = jm.init_decode_cache(jax_config(arch, smoke=True), 2, 8, pos=3)
+    tcache = tm.init_decode_cache(get_config(arch, smoke=True), 2, 8, "cpu", pos=3)
+    assert int(tcache["pos"]) == int(jcache["pos"]) == 3
+    leaves = list(_cache_leaves(jcache, tcache))
+    assert len(leaves) == len(jax.tree_util.tree_leaves(jcache["stages"]))
+    for name, got, want in leaves:
+        assert tuple(got.shape) == want.shape, name
+        assert str(got.dtype).split(".")[-1] == str(want.dtype), name
+        np.testing.assert_array_equal(_np(got), _np(want), err_msg=name)
+    if arch == "xlstm-1.3b":
+        m = [got for name, got, _ in leaves if name.endswith(" m")]
+        assert len(m) == 2 and all(bool((x == -1e30).all()) for x in m)
 
 
 def test_extend_cache_leaves_rings_and_states_alone():

@@ -115,8 +115,8 @@ def test_init_params_on_generator_is_deterministic():
 
 
 def test_refuses_unported_block_kinds():
-    cfg = torch_smoke().replace(stages=((("attn", "mlstm"), 1),))
-    with pytest.raises(NotImplementedError, match="mlstm"):
+    cfg = torch_smoke().replace(stages=((("attn", "dec_attn"), 1),))
+    with pytest.raises(NotImplementedError, match="dec_attn"):
         tm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
 
 

@@ -7,8 +7,9 @@ everything else, the f32 -> bf16 weight casts included.  The port's
 cast's storage is kept as its f32 weight, and the backward casts it
 again.  On the smoke configs of every
 ported block kind in bf16 compute (``attn``, ``local_attn``, ``rglru``,
-``moe`` with both dispatches), these tests hold a weak reference to the
-storage of every weight cast and record what the hooks keep:
+``moe`` with both dispatches, ``mlstm`` and ``slstm``), these tests hold
+a weak reference to the storage of every weight cast and record what the
+hooks keep:
   * after the forward under ``"dots"``, before the backward, every cast's
     storage is freed: nothing (a saved tensor, a view of one, the
     hooks' registry) keeps it; the same forward without remat keeps
@@ -23,12 +24,12 @@ import torch
 from torch.multiprocessing.reductions import StorageWeakRef
 
 from repro_torch.configs import get_config
-from repro_torch.layers import attention, common, mlp, moe, rglru
+from repro_torch.layers import attention, common, mlp, moe, rglru, xlstm
 from repro_torch.models import model as tm
 from repro_torch.utils.tree import tree_leaves, tree_unflatten
 
 CASES = [("recurrentgemma-2b", None), ("granite-3-8b", None),
-         ("qwen2-moe-a2.7b", "dense"), ("qwen2-moe-a2.7b", "ragged")]
+         ("qwen2-moe-a2.7b", "dense"), ("qwen2-moe-a2.7b", "ragged"), ("xlstm-1.3b", None)]
 
 
 def _cfg(arch, impl):
@@ -72,7 +73,7 @@ class _Recorder:
 
                 super().__init__(recording_pack, unpack)
 
-        for mod in (attention, mlp, rglru, moe, tm):
+        for mod in (attention, mlp, rglru, moe, xlstm, tm):
             monkeypatch.setattr(mod, "cast", recording_cast)
         monkeypatch.setattr(torch.autograd.graph, "saved_tensors_hooks", RecordingHooks)
         self.hooks = RecordingHooks

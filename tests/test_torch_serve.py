@@ -119,7 +119,7 @@ def test_submit_validates_against_arena(cfg, params):
 def test_engine_refuses_unservable_and_unported(cfg, params):
     with pytest.raises(ValueError, match="local_attn"):
         _engine(cfg.replace(stages=((("attn", "local_attn"), 1),)), params)
-    with pytest.raises(ValueError, match="mlstm"):  # not servable, and not ported
+    with pytest.raises(ValueError, match="mlstm"):  # ported, but not servable (recurrent state)
         _engine(cfg.replace(stages=((("mlstm",), 1),)), params)
 
 

@@ -36,6 +36,7 @@ from repro.train.loop import Trainer as JaxTrainer
 from repro.train.loop import TrainLoopConfig as JaxLoopConfig
 from repro.train.loop import make_shuffler as jax_shuffler
 from repro.train.steps import make_train_step as jax_train_step
+from repro_torch.configs import get_config
 from repro_torch.configs.granite_3_8b import smoke_config as torch_granite
 from repro_torch.configs.recurrentgemma_2b import smoke_config as torch_smoke
 from repro_torch.core.readpath import ReadPathConfig, build_data_plane
@@ -198,12 +199,12 @@ def test_dots_remat_matches_jax_checkpoint_dots(pair):
 class _DotCounter(TorchDispatchMode):
     """Counts the matrix products dispatched while it is active."""
 
-    def __init__(self):
+    def __init__(self, ops=_DOT_OPS):
         super().__init__()
-        self.n = 0
+        self.n, self.ops = 0, ops
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        if func in _DOT_OPS:
+        if func in self.ops:
             self.n += 1
         return func(*args, **(kwargs or {}))
 
@@ -237,6 +238,31 @@ def test_dots_backward_recomputes_no_matrix_product(pair, dot_counts):
     (fwd, none_bwd), dots, full = dot_counts["none"], dot_counts["dots"], dot_counts["full"]
     assert dots == (fwd, none_bwd) and full[0] == fwd
     assert full[1] - none_bwd == fwd - 1 - periods
+
+
+def test_dots_backward_recomputes_no_matrix_product_on_xlstm():
+    """The same count on smoke xlstm (f32), the sLSTM's per-step product
+    (``baddbmm`` into its buffer) counted too: under ``"dots"`` the forward
+    and the backward run as many products as without remat (the chunkwise
+    mLSTM's segments and the sLSTM's reverse-time backward recompute
+    none); ``"full"`` recomputes the periods' products, the sLSTM's 32 a
+    layer among them."""
+    cfg = get_config("xlstm-1.3b", smoke=True).replace(dtype="float32", vocab_size=VOCAB)
+    params = tm.init_params(cfg, torch.Generator().manual_seed(4), "cpu")
+    toks, labels = _batch(32, 13)
+    ops = _DOT_OPS | {torch.ops.aten.baddbmm.out}
+    counts = {}
+    for remat in ("none", "dots", "full"):
+        leaves = [p.clone().requires_grad_() for p in tree_leaves(params)]
+        fwd, bwd = _DotCounter(ops), _DotCounter(ops)
+        with fwd:
+            loss, _ = tm.loss_fn(cfg.replace(remat=remat), tree_unflatten(params, leaves),
+                                 {"tokens": torch.from_numpy(toks), "labels": torch.from_numpy(labels)})
+        with bwd:
+            torch.autograd.grad(loss, leaves)
+        counts[remat] = (fwd.n, bwd.n)
+    assert counts["dots"] == counts["none"] and counts["full"][0] == counts["none"][0]
+    assert counts["full"][1] - counts["none"][1] >= 2 * 32  # two sLSTM layers
 
 
 # ---------------------------------------------------------------- optimizer
