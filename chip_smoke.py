@@ -31,10 +31,17 @@
    the card could take; ``flash_attention`` also at granite-3-8b's
    4,096-token context (the row's ``context_4096``); both at head dim
    160 (the rows' ``head_dim_160``: K4 at stablelm-12b's 128-token prompt
-   in bf16 and f32, K6 at the serving shape in bf16).
+   in bf16 and f32, K6 at the serving shape in bf16).  Then whisper-tiny's
+   shapes: K4 with ``causal=False`` at its encoder's q, k, v (8, 1,500, 6,
+   64) and its cross-attention's q (8, 384, 6, 64) against (8, 1,500, 6,
+   64), K6 on its 1,500-frame cross cache at cur = T - 1, T - 2, 0 and
+   past T, in bf16 and f32, the three bf16 calls timed (the rows'
+   ``whisper``).
 4. Holds the port's model on the card against the same model on the CPU
-   (plain kernel versions) at smoke size, in float32; and ``LinearSVM``
-   likewise, a few steps on one dense batch at epsilon's width.
+   (plain kernel versions) at smoke size, in float32 (granite; whisper
+   with its frames and qwen2-vl with ``positions_3d``: loss, gradients,
+   prefill and its caches, decode); and ``LinearSVM`` likewise, a few
+   steps on one dense batch at epsilon's width.
 5. Drives the serving launcher (``repro_torch.launch.serve``) on
    granite-3-8b at full published width — random weights from ``--seed``,
    40 layers, d_model 4096 — and checks that every request completed, no
@@ -155,7 +162,25 @@
    teacher-forced decode against prefill at 48 layers (bf16 within twice
    the bf16 prefill's distance from f32, f32 printed) and on one layer of
    each kind at full width (f32, 1e-3).
-15. Prints ``{"kernels": [...]}``, then ``{"ok": true, "device": ...}`` as
+15. whisper-tiny at published width and depth (4 ``enc_attn`` + 4
+   ``dec_attn`` layers, d_model 384, 6 heads of 64, 56,355,840
+   parameters; random frames, the conv frontend a stub as in the JAX
+   package): 8 training steps through ``make_train_step`` (B 8, 1,500
+   frames, 448 tokens; finite losses, encoder gradients non-zero, no
+   launch); then prefill 8 x 384 tokens with the frames, ``extend_cache``
+   by 64 and 64 greedy decode steps: 12 K4 launches a prefill, all on the
+   tensor-core kernel, 8 K6 launches a step, all on the cluster kernel, the
+   cross K/V unchanged by decode; prefill ms, decode ms a step, tokens/s,
+   peak memory and a profile of 5 decode steps; then prefill(320) ->
+   ``extend_cache`` -> 64 teacher-forced steps against prefill(384), f32
+   (1e-3) and bf16 (5e-2).
+16. qwen2-vl-72b at full width and 8 of 80 layers (9,512,820,736
+   parameters): a 64-token prompt with a 6 x 8 image block, its M-RoPE
+   positions as Qwen2-VL lays them out; prefill against 64 teacher-forced
+   decode steps each with its (1, 3, 1) positions, f32 (1e-3) and bf16
+   (5e-2), K4 and K6 at group 8, D 128; the default positions must move
+   the logits by more than each tolerance; the peak 5 GiB under the card.
+17. Prints ``{"kernels": [...]}``, then ``{"ok": true, "device": ...}`` as
    the last line.  Any failed check exits non-zero before those lines.
 """
 from __future__ import annotations
@@ -285,6 +310,25 @@ XLSTM_DECODE_PROFILE = 5
 # short lengths whose profiles give its launches a time step
 SLSTM_SHAPE, SLSTM_COUNT_LENGTHS = (1, 4096, 2048), (64, 128)
 
+# whisper-tiny at published width and depth (4 enc_attn + 4 dec_attn
+# layers, d_model 384, 6 heads of 64): 30 s of audio is 1,500 encoder
+# frames, Whisper's text context 448 tokens; training B = 8 over both,
+# WHISPER_TRAIN_STEPS steps; serving prefills 8 x WHISPER_PROMPT tokens,
+# extends the cache by WHISPER_DECODE and decodes as many greedy steps (448
+# positions); the teacher-forced check prefills WHISPER_TEACHER_PROMPT and
+# decodes the rest of WHISPER_PROMPT against prefill(WHISPER_PROMPT)
+WHISPER_ARCH = "whisper-tiny"
+WHISPER_BATCH, WHISPER_TEXT, WHISPER_TRAIN_STEPS = 8, 448, 8
+WHISPER_PROMPT, WHISPER_DECODE, WHISPER_TEACHER_PROMPT = 384, 64, 320
+WHISPER_PROFILE_STEPS = 5
+# qwen2-vl-72b at full width and QWEN_VL_LAYERS of its 80 layers
+# (``reduced``: 80 layers are 290.8 GB of f32 weights; 8 are 38.05 GB): a
+# prompt of QWEN_VL_TEXT text tokens, an image of QWEN_VL_IMAGE (h, w)
+# patches, then text again, QWEN_VL_TOKENS in all, prefilled and decoded
+# teacher-forced with its M-RoPE positions
+QWEN_VL_ARCH, QWEN_VL_LAYERS = "qwen2-vl-72b", 8
+QWEN_VL_TEXT, QWEN_VL_IMAGE, QWEN_VL_TOKENS = 8, (6, 8), 64
+
 SERVE_ARGS = ["--arch", "granite-3-8b", "--serve-mode", "continuous",
               "--max-batch", "8", "--prompt-capacity", "128", "--gen", "32",
               "--requests", "16", "--offered-load", "1.0", "--seed", "0",
@@ -357,6 +401,26 @@ def time_ms(fns, n=50, rounds=3):
             torch.cuda.synchronize()
             samples[k].append(start.elapsed_time(stop) / n)
     return {k: statistics.median(v) for k, v in samples.items()}, eager
+
+
+def _profiled(fn, steps, **kw):
+    """Run ``fn`` ``steps`` times under torch.profiler (``kw`` its options):
+    ``(profile, device events, wall seconds)``.  Device-side events only
+    (kernels, copies): the CPU ops that launch them carry the same device
+    time again."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], **kw) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    check(bool(events), "the profiler recorded no device activity")
+    return prof, events, wall
 
 
 # ------------------------------------------------------------ kernels
@@ -886,6 +950,79 @@ def model_phase(dev):
         want, got = outs["cpu"][i], outs["gpu"][i].cpu()
         check(got.shape == want.shape, f"{what}: shape {got.shape} vs {want.shape}")
         compare(f"{what} {tuple(got.shape)}", got, want, 1e-4)
+    for arch in (WHISPER_ARCH, QWEN_VL_ARCH):
+        extras_card_vs_cpu_check(dev, arch)
+
+
+def _worst_leaf(got, want):
+    """The largest |card - CPU| over a list of leaves, each as a share of
+    the CPU leaf's largest entry."""
+    return max(float((g.cpu() - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+               for g, w in zip(got, want))
+
+
+def _smoke_extras(cfg, b, n, device):
+    """The batch extras of a smoke config: seeded frames for an encoder,
+    Qwen2-VL positions (one image of 2 x 3 patches) for M-RoPE."""
+    from repro_torch.layers.positional import vl_positions
+
+    if cfg.encoder is not None:
+        enc = cfg.encoder
+        return {"encoder_frames": torch.randn(b, enc.num_frames, enc.d_input,
+                                              generator=torch.Generator().manual_seed(4))}
+    return {"positions_3d": vl_positions(n, 3, (2, 3))[None].repeat(b, 1, 1)}
+
+
+def extras_card_vs_cpu_check(dev, arch):
+    """Smoke ``arch`` (whisper-tiny: encoder frames; qwen2-vl-72b:
+    ``positions_3d``) in f32 on the card (the kernels) against the CPU
+    (their plain versions), same weights and inputs: the loss and every
+    gradient leaf (to 1e-4 of the leaf's largest entry), the prefill's
+    logits and every cache leaf, then ``extend_cache`` and 4 decode steps
+    (qwen2-vl with each step's (B, 3, 1) positions), at 1e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
+
+    cfg = get_config(arch, smoke=True).replace(dtype="float32")
+    print(f"{arch} smoke (f32) on the card vs on the CPU: loss, gradients, prefill, decode")
+    init = M.init_params(cfg, torch.Generator().manual_seed(1), "cpu")
+    n, p = 21, 16
+    toks = torch.randint(1, cfg.vocab_size, (2, n), generator=torch.Generator().manual_seed(2))
+    extras = _smoke_extras(cfg, 2, n, "cpu")
+    steps = "positions_3d" in extras
+    outs = {}
+    for d in ("cpu", dev):
+        ex = {k: v.to(d) for k, v in extras.items()}
+        train = {k: v[..., :n - 1] if k == "positions_3d" else v for k, v in ex.items()}
+        leaves = [x.to(d, copy=True).requires_grad_() for x in tree_leaves(init)]
+        loss, _ = M.loss_fn(cfg, tree_unflatten(init, leaves),
+                            {"tokens": toks[:, :-1].to(d), "labels": toks[:, 1:].to(d), **train})
+        grads = torch.autograd.grad(loss, leaves)
+        params = tree_map(lambda x: x.to(d), init)
+        pre = {k: v[..., :p] if k == "positions_3d" else v for k, v in ex.items()}
+        cache, plog = M.prefill(cfg, params, toks[:, :p].to(d), pre)
+        cache_leaves = [x.clone() for x in tree_leaves(cache["stages"])]
+        cache = M.extend_cache(cfg, cache, n - p)
+        dlogs = []
+        for i in range(p, n):
+            step = {"positions_3d": ex["positions_3d"][..., i:i + 1]} if steps else None
+            cache, lg = M.decode_step(cfg, params, cache, toks[:, i:i + 1].to(d), step)
+            dlogs.append(lg)
+        outs[d] = (loss.detach(), grads, plog, cache_leaves, torch.stack(dlogs))
+    (closs, cgrads, cplog, cleaves, cdec), (gloss, ggrads, gplog, gleaves, gdec) = (
+        outs["cpu"], outs[dev])
+    compare("loss", gloss.cpu(), closs, 1e-4)
+    worst = _worst_leaf(ggrads, cgrads)
+    print(f"  {len(ggrads)} gradient leaves: worst |card - CPU| {worst:.2e} of the leaf's "
+          "largest entry (tol 1e-4)")
+    check(worst <= 1e-4, f"{arch}: a gradient leaf differs")
+    compare(f"prefill logits {tuple(gplog.shape)}", gplog.cpu(), cplog, 1e-4)
+    worst = _worst_leaf(gleaves, cleaves)
+    print(f"  prefill cache: {len(gleaves)} leaves, worst {worst:.2e} of the leaf's largest "
+          "entry (tol 1e-4)")
+    check(worst <= 1e-4, f"{arch}: a prefill cache leaf differs")
+    compare(f"{n - p} decode steps' logits {tuple(gdec.shape)}", gdec.cpu(), cdec, 1e-4)
 
 
 def train_step_phase(dev):
@@ -1051,8 +1188,6 @@ def profile_phase(dev, arch="granite-3-8b", params=None, steps=5):
     wall time; for a MoE config also device time by operation class
     (``_moe_classes``).  Runs after the main path, so its launches are not
     counted there.  Returns the engine (8 live slots)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
@@ -1070,19 +1205,8 @@ def profile_phase(dev, arch="granite-3-8b", params=None, steps=5):
     eng.step()  # admits all 8 and decodes once
     eng.step()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=cfg.moe is not None) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            eng.step()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    prof, events, wall = _profiled(eng.step, steps, record_shapes=cfg.moe is not None)
     check(eng.active == 8, "profiled steps lost a slot")
-    # device-side events only (kernels, copies): the CPU ops that launch
-    # them carry the same device time again
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    check(bool(events), "the profiler recorded no device activity")
     device_us = sum(e.self_device_time_total for e in events)
     print(f"profile of {steps} decode steps ({arch}, 8 live slots, full width): "
           f"wall {1e3 * wall / steps:.2f} ms/step, device busy "
@@ -1400,8 +1524,6 @@ def dnn_phase(dev, seed=0):
     epoch replayed with batch_gather_dma (K2) from the same weights.
     Returns the launches of K1 on the main run and of K2 on the replay."""
     import numpy as np
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.shuffler import LIRSShuffler, TFIPShuffler
     from repro_torch.data.device_table import DeviceTable
@@ -1518,15 +1640,8 @@ def dnn_phase(dev, seed=0):
     for _ in range(20):
         model.train_batch(*block.batch(next(batches)))
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(DNN_PROFILE_STEPS):
-            model.train_batch(*block.batch(next(batches)))
-        torch.cuda.synchronize()
-        win = time.perf_counter() - t0
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    check(bool(events), "the profiler recorded no device activity")
+    _, events, win = _profiled(lambda: model.train_batch(*block.batch(next(batches))),
+                               DNN_PROFILE_STEPS)
     busy_us = sum(e.self_device_time_total for e in events)
     calls = sum(e.count for e in events)
     print(f"  profile of {DNN_PROFILE_STEPS} LIRS steps: wall {1e3 * win / DNN_PROFILE_STEPS:.3f} "
@@ -1644,8 +1759,6 @@ def train_profile_phase(dev, steps=2):
     main path, so its launches are not counted there."""
     import gc
 
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
     from repro_torch.train.optimizer import AdamW, AdamWConfig
@@ -1677,20 +1790,17 @@ def train_profile_phase(dev, steps=2):
             float(out["loss"])
         torch.cuda.synchronize()
         plain_wall = time.perf_counter() - t0
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(steps):
-                state, out = step(state, batch)
-                float(out["loss"])
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+
+        def one_step():
+            nonlocal state
+            state, out = step(state, batch)
+            float(out["loss"])
+
+        _, events, wall = _profiled(one_step, steps)
         peak = torch.cuda.max_memory_allocated(dev) / 2**30
         check(peak <= card_gib - 5, f"remat={remat!r} peaks at {peak:.2f} of the card's "
               f"{card_gib:.2f} GiB, less than 5 GiB under it")
         step_ms[remat], peaks[remat] = 1e3 * plain_wall / steps, peak
-        events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-        check(bool(events), "the profiler recorded no device activity")
         busy_us = sum(e.self_device_time_total for e in events)
         calls = sum(e.count for e in events)
         print(f"profile of {steps} training steps, remat={remat!r} (full width, {n_params:,} "
@@ -1711,7 +1821,7 @@ def train_profile_phase(dev, steps=2):
         for e in top[:12] + [e for e in top[12:] if "rglru" in e.key or "scan_ring" in e.key]:
             print(f"  {e.self_device_time_total / steps / 1e3:9.3f} ms/step "
                   f"{e.count // steps:5d} calls/step  {e.key[:100]}")
-        del state, out, prof
+        del state, out
     print(f"  remat 'dots' {step_ms['dots']:.1f} against 'full' {step_ms['full']:.1f} ms a step "
           f"(host clock, this call): ratio {step_ms['dots'] / step_ms['full']:.3f}; peak memory "
           f"{peaks['dots']:.2f} against {peaks['full']:.2f} GiB")
@@ -1800,8 +1910,6 @@ def recurrent_decode_phase(dev):
     peak memory.  Returns the decode's launches."""
     import gc
 
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
@@ -1857,16 +1965,12 @@ def recurrent_decode_phase(dev):
     check(launches["rglru_scan"] == 0, f"decode launched rglru_scan {launches['rglru_scan']} times")
     check(bool(torch.isfinite(logits).all()), "decode logits not finite")
     check(int(cache["pos"]) == RG_PROMPT + RG_DECODE, f"pos {int(cache['pos'])}")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(RG_PROFILE_STEPS):
-            cache, logits = decode(params, cache, tok)
-            tok = _greedy(logits)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    check(bool(events), "the profiler recorded no device activity")
+    def one_step():
+        nonlocal cache, logits, tok
+        cache, logits = decode(params, cache, tok)
+        tok = _greedy(logits)
+
+    _, events, wall = _profiled(one_step, RG_PROFILE_STEPS)
     busy_us = sum(e.self_device_time_total for e in events)
     busy_ms = 1e-3 * busy_us / RG_PROFILE_STEPS
     print(f"  profile of {RG_PROFILE_STEPS} decode steps: wall {1e3 * wall / RG_PROFILE_STEPS:.2f} "
@@ -1874,11 +1978,7 @@ def recurrent_decode_phase(dev):
           f"{busy_ms / (1e3 * decode_s / RG_DECODE):.3f} of the unprofiled step")
     _top(events, RG_PROFILE_STEPS, "step")
     del cache, logits
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        prefill(params, toks)
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    _, events, _ = _profiled(lambda: prefill(params, toks), 1)
     busy_us = sum(e.self_device_time_total for e in events)
     print(f"  profile of one prefill: device busy {1e-3 * busy_us:.1f} ms; busy share "
           f"{1e-3 * busy_us / (1e3 * prefill_s):.3f} of the unprofiled prefill")
@@ -2065,11 +2165,13 @@ def _entries(ops):
                      for k, v in ops.ENTRY_LAUNCHES.items() if "flash" in k)
 
 
-def _teacher_forced(cfg, prefill_cfg, params, toks, dev, label, tol):
+def _teacher_forced(cfg, prefill_cfg, params, toks, dev, label, tol, pos3d=None):
     """``prefill_cfg``'s prefill of ``toks`` (1, N) against N teacher-forced
     ``cfg`` decode steps from ``init_decode_cache(cfg, 1, N)``: one K4
     launch a layer in the prefill, one K6 launch a layer a step, the last
-    logits finite and, unless ``tol`` is None, within ``tol``.  For a MoE
+    logits finite and, unless ``tol`` is None, within ``tol``.  With
+    ``pos3d`` (1, 3, N), the prefill takes it as ``positions_3d`` and
+    decode step i its column i.  For a MoE
     config, also counts the (token, layer) routings whose experts differ
     between the two runs.  Returns the decode's launches by entry point
     and the prefill's logits."""
@@ -2079,7 +2181,8 @@ def _teacher_forced(cfg, prefill_cfg, params, toks, dev, label, tol):
     n, layers = toks.shape[1], cfg.num_layers
     ops.reset_launch_counts()
     with _Routes() as pre_ids:
-        _, want = M.prefill(prefill_cfg, params, toks)
+        _, want = M.prefill(prefill_cfg, params, toks,
+                            None if pos3d is None else {"positions_3d": pos3d})
     torch.cuda.synchronize()
     check(ops.LAUNCHES["flash_attention"] == layers,
           f"prefill launched flash_attention {ops.LAUNCHES['flash_attention']} times")
@@ -2088,7 +2191,8 @@ def _teacher_forced(cfg, prefill_cfg, params, toks, dev, label, tol):
     cache = M.init_decode_cache(cfg, 1, n, dev)
     with _Routes() as dec_ids:
         for i in range(n):
-            cache, got = M.decode_step(cfg, params, cache, toks[:, i:i + 1])
+            step = None if pos3d is None else {"positions_3d": pos3d[:, :, i:i + 1]}
+            cache, got = M.decode_step(cfg, params, cache, toks[:, i:i + 1], step)
     torch.cuda.synchronize()
     check(ops.LAUNCHES["flash_decode"] == layers * n,
           f"decode launched flash_decode {ops.LAUNCHES['flash_decode']} times, want {layers * n}")
@@ -2107,22 +2211,23 @@ def _teacher_forced(cfg, prefill_cfg, params, toks, dev, label, tol):
     return dict(ops.ENTRY_LAUNCHES), want
 
 
-def _dtype_checks(cfg, pre, params, toks, dev, label, bf16_tol):
+def _dtype_checks(cfg, pre, params, toks, dev, label, bf16_tol, pos3d=None):
     """``_teacher_forced`` in f32 compute (K4 and K6 on their f32 kernels)
     at F32_LOGITS_TOL, then in bf16 (the tensor-core K4 where the group
     divides 64, K6 on its cluster kernel) at ``bf16_tol``; prints how far
     the bf16 prefill lies from the f32 one, bf16's own rounding at this
-    depth."""
+    depth.  Returns the prefills' logits by dtype."""
     n, layers = toks.shape[1], cfg.num_layers
-    prefills = []
+    prefills = {}
     for dtype, tol, entry in (("float32", F32_LOGITS_TOL, "repro_torch_flash_decode"),
                               ("bfloat16", bf16_tol, "repro_torch_flash_decode_cluster")):
         entries, want = _teacher_forced(cfg.replace(dtype=dtype), pre.replace(dtype=dtype),
-                                        params, toks, dev, f"{label} {dtype}", tol)
+                                        params, toks, dev, f"{label} {dtype}", tol, pos3d)
         check(entries.get(entry, 0) == layers * n, f"{dtype} decode did not run on {entry}")
-        prefills.append(want.float())
+        prefills[dtype] = want.float()
     print(f"  {label}: bf16 prefill vs f32 prefill max_abs_err "
-          f"{float((prefills[1] - prefills[0]).abs().max()):.3e}")
+          f"{float((prefills['bfloat16'] - prefills['float32']).abs().max()):.3e}")
+    return prefills
 
 
 def moe_checks_phase(dev):
@@ -2458,14 +2563,12 @@ def xlstm_card_vs_cpu_check(dev):
         print(f"  train step {k}: card {go[k]:.7f}, CPU {co[k]:.7f}, relative error {err:.2e} "
               f"(tol {tol:g})")
         check(err <= tol, f"train step {k} differs")
-    worst = max(float((g.cpu() - c).abs().max()) / max(float(c.abs().max()), 1e-30)
-                for g, c in zip(tree_leaves(gs["opt"]["mu"]), tree_leaves(cs["opt"]["mu"])))
+    worst = _worst_leaf(tree_leaves(gs["opt"]["mu"]), tree_leaves(cs["opt"]["mu"]))
     print(f"  the step's gradients (first moments): worst leaf {worst:.2e} of its largest entry "
           "(tol 1e-4)")
     check(worst <= 1e-4, "the train step's gradients differ")
     compare(f"prefill logits {tuple(gpre.shape)}", gpre.cpu(), cpre, 1e-4)
-    worst = max(float((g.cpu() - c).abs().max()) / max(float(c.abs().max()), 1e-30)
-                for g, c in zip(gleaves, cleaves))
+    worst = _worst_leaf(gleaves, cleaves)
     print(f"  prefill cache: {len(gleaves)} leaves, worst |card - CPU| {worst:.2e} of the leaf's "
           "largest entry (tol 1e-4)")
     check(worst <= 1e-4, "a prefill cache leaf differs")
@@ -2817,6 +2920,384 @@ def xlstm_teacher_forced_check(cfg, params, dev):
           "the held check cannot tell a cache with m = 0 from a sound one")
 
 
+# --------------------------------------- whisper-tiny and qwen2-vl-72b
+
+
+def faults_seen(label, want, tol, faults):
+    """Each planted fault's output against ``want`` must breach ``tol`` as
+    ``compare`` reads it: the check just made would fail on a kernel with
+    that fault.  ``faults``: {what: the kernel's output with it}."""
+    want = want.float()
+    for what, got in faults.items():
+        err = (got.float() - want).abs()
+        seen = bool((err > tol + tol * want.abs()).any())
+        print(f"  planted fault, {label}, {what}: max_abs_err {float(err.max()):.3e} (tol {tol:g}) "
+              f"{'breaches' if seen else 'UNSEEN'}")
+        check(seen, f"{label}: the check does not see {what}")
+
+
+def whisper_kernel_phase(dev):
+    """K4 with ``causal=False`` and K6 at whisper-tiny's shapes (6 heads of
+    64, group 1) against their plain versions: K4 at the encoder's q, k, v
+    (B, 1500, 6, 64) and at cross-attention's q (B, WHISPER_PROMPT, 6, 64)
+    against k, v (B, 1500, 6, 64), in bf16 (the tensor-core kernel) and f32
+    (the CUDA-core one); K6 on the cross cache, q (B, 6, 64) against (B,
+    1500, 6, 64), at cur = T - 1 (cross-attention's), T - 2, 0 and past T,
+    in bf16 (the cluster kernel: 3 splits of 512 keys) and f32.  Each on
+    N(0, 1) inputs and on ``ref.edge_probe``'s, whose answer hangs on the
+    last key and nothing past it; on those, ``faults_seen`` shows that
+    the same limit fails a kernel that drops the ragged last tile, stops
+    one key short or attends zero-filled keys past T.  Then the three
+    bf16 calls timed (N(0, 1) inputs) beside the bound and SDPA.  Returns the timed
+    entries: ``{"flash_attention": {"encoder", "cross"}, "flash_decode":
+    {"cross"}}``."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    b, h, d, t, s = WHISPER_BATCH, 6, 64, 1500, WHISPER_PROMPT
+    g = torch.Generator(device=dev).manual_seed(13)
+
+    def randn(*shape, dt=torch.bfloat16):
+        return torch.randn(*shape, generator=g, device=dev).to(dt)
+
+    print("whisper-tiny's attention: flash_attention causal=False (encoder, cross) and "
+          "flash_decode on the 1,500-frame cross cache, vs plain versions:")
+    check(ops._attention_kernel(torch.bfloat16, d, 1) == "wgmma"
+          and ops._decode_kernel(torch.bfloat16, d) == "cluster",
+          "whisper-tiny's bf16 attention does not route to the tensor-core K4 and the cluster K6")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    print(f"  K6 at B = {b}: (splits, keys a split) {ops._decode_splits(b, h, t, sms)} on {sms} SMs; "
+          f"at B = 1: {ops._decode_splits(1, h, t, sms)}")
+    whole, cut = -(-t // 64) * 64, t // 64 * 64  # T rounded up and down to 64-key tiles
+
+    def pad(x):  # zero keys up to a whole tile, as a TMA load past T fills them
+        return torch.cat([x, x.new_zeros(b, whole - t, h, d)], 1)
+
+    for dt in (torch.bfloat16, torch.float32):
+        tol = TOL[str(dt)]
+        for label, sq in (("encoder", t), ("cross", s)):
+            q, k, v = randn(b, sq, h, d, dt=dt), randn(b, t, h, d, dt=dt), randn(b, t, h, d, dt=dt)
+            what = (f"{dt} K4 {label} q{tuple(q.shape)} kv{tuple(k.shape)} causal=False "
+                    f"({ops._attention_kernel(dt, d, 1)})")
+            compare(what, ops.flash_attention(q, k, v, False), ref.flash_attention(q, k, v, False),
+                    tol)
+            q, k, v = ref.edge_probe((b, sq, h, d), (b, t, h, d), dt, g)
+            want = ref.flash_attention(q, k, v, False)
+            compare(f"{what}, edge probe", ops.flash_attention(q, k, v, False), want, tol)
+            faults_seen(f"{dt} K4 {label}", want, tol, {
+                f"edge mask off (zero keys to {whole})": ops.flash_attention(q, pad(k), pad(v), False),
+                f"last partial tile dropped (T = {cut})": ops.flash_attention(
+                    q, k[:, :cut].contiguous(), v[:, :cut].contiguous(), False)})
+        q, kc, vc = randn(b, h, d, dt=dt), randn(b, t, h, d, dt=dt), randn(b, t, h, d, dt=dt)
+        for c in (t - 1, t - 2, 0, t + 9):
+            cur = torch.full((b,), c, dtype=torch.int32, device=dev)
+            compare(f"{dt} K6 q{tuple(q.shape)} cache{tuple(kc.shape)} cur={c} "
+                    f"({ops._decode_kernel(dt, d)})", ops.flash_decode(q, kc, vc, cur),
+                    ref.flash_decode(q, kc, vc, cur), tol)
+        q, kc, vc = ref.edge_probe((b, 1, h, d), (b, t, h, d), dt, g)
+        q = q[:, 0].contiguous()
+        for c in (t - 1, t - 2, 0, t + 9):
+            cur = torch.full((b,), c, dtype=torch.int32, device=dev)
+            compare(f"{dt} K6 cur={c}, edge probe", ops.flash_decode(q, kc, vc, cur),
+                    ref.flash_decode(q, kc, vc, cur), tol)
+        cur = torch.full((b,), t - 1, dtype=torch.int32, device=dev)
+        want = ref.flash_decode(q, kc, vc, cur)
+        faults_seen(f"{dt} K6 cur = {t - 1}", want, tol, {
+            f"cur one short ({t - 2})": ops.flash_decode(q, kc, vc, cur - 1),
+            f"edge mask off (zero keys to {whole})": ops.flash_decode(
+                q, pad(kc), pad(vc), cur + whole - t),
+            f"last partial tile dropped (T = {cut})": ops.flash_decode(
+                q, kc[:, :cut].contiguous(), vc[:, :cut].contiguous(), cur + cut - t)})
+    out = {"flash_attention": {}, "flash_decode": {}}
+    for label, sq in (("encoder", t), ("cross", s)):
+        q, k, v = randn(b, sq, h, d), randn(b, t, h, d), randn(b, t, h, d)
+        err = compare(f"timed inputs K4 {label}", ops.flash_attention(q, k, v, False),
+                      ref.flash_attention(q, k, v, False), TOL["torch.bfloat16"])
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        tm, eager = time_ms({
+            "kernel": lambda: ops.flash_attention(q, k, v, False),
+            "plain": lambda: ref.flash_attention(q, k, v, False),
+            "library": lambda: F.scaled_dot_product_attention(qt, kt, vt),
+        }, n=20)
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())  # q, k, v in; o out
+        row = dict(max_abs_err=err, ms=tm["kernel"], plain_ms=tm["plain"],
+                   **bound(nbytes, 4 * b * sq * t * h * d, BF16_FLOPS), library_ms=tm["library"])
+        out["flash_attention"][label] = row
+        print(f"  K4 {label} q{tuple(q.shape)} kv{tuple(k.shape)}: device ms per call {tm}; eager "
+              f"{eager}; bound {row['bound_ms']:.6f} ms ({row['bound_by']}, {nbytes} bytes); "
+              f"kernel at {row['bound_ms'] / tm['kernel']:.3f} of it, SDPA at "
+              f"{row['bound_ms'] / tm['library']:.3f}")
+    q, kc, vc = randn(b, h, d), randn(b, t, h, d), randn(b, t, h, d)
+    cur = torch.full((b,), t - 1, dtype=torch.int32, device=dev)
+    err = compare("timed inputs K6 cross", ops.flash_decode(q, kc, vc, cur),
+                  ref.flash_decode(q, kc, vc, cur), TOL["torch.bfloat16"])
+    q4 = q[:, :, None]
+    kt, vt = (x.transpose(1, 2).contiguous() for x in (kc, vc))
+    tm, eager = time_ms({
+        "kernel": lambda: ops.flash_decode(q, kc, vc, cur),
+        "plain": lambda: ref.flash_decode(q, kc, vc, cur),
+        "library": lambda: F.scaled_dot_product_attention(q4, kt, vt),  # cur = T - 1: every key
+    })
+    nbytes = 2 * (2 * q.numel() + kc.numel() + vc.numel()) + 4 * b
+    row = dict(max_abs_err=err, ms=tm["kernel"], plain_ms=tm["plain"],
+               **bound(nbytes, 4 * b * t * h * d, BF16_FLOPS), library_ms=tm["library"])
+    out["flash_decode"]["cross"] = row
+    print(f"  K6 cross q{tuple(q.shape)} cache{tuple(kc.shape)} cur = {t - 1}: device ms per call "
+          f"{tm}; eager {eager}; bound {row['bound_ms']:.6f} ms ({row['bound_by']}, {nbytes} "
+          f"bytes); kernel at {row['bound_ms'] / tm['kernel']:.3f} of it, SDPA at "
+          f"{row['bound_ms'] / tm['library']:.3f}")
+    return out
+
+
+def _whisper_inputs(cfg, dev):
+    """Seeded (B, 1500, 384) f32 frames and (B, 448) tokens."""
+    enc = cfg.encoder
+    frames = torch.randn(WHISPER_BATCH, enc.num_frames, enc.d_input,
+                         generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    toks = torch.randint(1, cfg.vocab_size, (WHISPER_BATCH, WHISPER_TEXT + 1), dtype=torch.int32,
+                         generator=torch.Generator(device=dev).manual_seed(2), device=dev)
+    return frames, toks
+
+
+def whisper_train_phase(dev):
+    """whisper-tiny at published width and depth (random f32 weights,
+    bf16 compute, AdamW, ``remat="dots"``) for WHISPER_TRAIN_STEPS steps
+    through ``make_train_step``, B = 8 over 1,500 frames and 448 tokens:
+    finite losses, every encoder leaf's gradient non-zero (read from the
+    first moments after step 1), and no kernel launch (training attention
+    is the plain ``sdpa``, as JAX's); prints the step times and the peak
+    memory."""
+    import math
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.train.optimizer import AdamW, AdamWConfig
+    from repro_torch.train.steps import init_train_state, make_train_step
+    from repro_torch.utils.tree import tree_leaves
+
+    _free()
+    cfg = get_config(WHISPER_ARCH)
+    opt = AdamW(AdamWConfig(lr=1e-3, warmup_steps=10))
+    state = init_train_state(cfg, torch.Generator(device=dev).manual_seed(0), opt, dev)
+    step = make_train_step(cfg, opt)
+    frames, toks = _whisper_inputs(cfg, dev)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:], "encoder_frames": frames}
+    print(f"training {WHISPER_ARCH} at full width and depth ({cfg.num_layers} dec_attn + "
+          f"{cfg.encoder.stages[0][1]} enc_attn layers, {WHISPER_BATCH} x {WHISPER_TEXT} tokens "
+          f"over {cfg.encoder.num_frames} frames, remat {cfg.remat!r}):")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    losses, secs = [], []
+    for i in range(WHISPER_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, out = step(state, batch)
+        losses.append(float(out["loss"]))
+        secs.append(time.perf_counter() - t0)
+        if i == 0:
+            mu = tree_leaves(state["opt"]["mu"]["encoder"])
+            zero = sum(float(m.abs().max()) == 0.0 for m in mu)
+            print(f"  step 1: {len(mu)} encoder gradient leaves, {zero} of them zero")
+            check(zero == 0, "an encoder gradient leaf is zero")
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    med = statistics.median(secs[1:])
+    print(f"  losses {[round(x, 6) for x in losses]}")
+    print(f"  step seconds {[round(x, 4) for x in secs]}; median of steps 2-{WHISPER_TRAIN_STEPS} "
+          f"{med:.4f} s ({WHISPER_BATCH * WHISPER_TEXT / med:.0f} tokens/s, "
+          f"{WHISPER_BATCH * cfg.encoder.num_frames / med:.0f} frames/s); peak memory {peak:.2f} GiB; "
+          f"launches {dict(ops.LAUNCHES)}")
+    check(all(math.isfinite(x) for x in losses), "a whisper-tiny loss is not finite")
+    check(all(v == 0 for v in ops.LAUNCHES.values()), f"training launched kernels {ops.LAUNCHES}")
+    del state, out
+    _free()
+
+
+def whisper_serve_phase(dev):
+    """whisper-tiny at published width and depth (random f32 weights from
+    seed 0, bf16 compute) through the step functions: prefill B x
+    WHISPER_PROMPT tokens with the frames, ``extend_cache`` by
+    WHISPER_DECODE, then WHISPER_DECODE greedy decode steps (448
+    positions), every count from 0 just before each.  Checks 12 K4
+    launches in the prefill (4 encoder, 4 decoder self, 4 cross), all on
+    the tensor-core kernel; 8 K6 launches a decode step (4 self, 4 cross),
+    all on the cluster kernel; the cross K/V ``torch.equal`` before and
+    after decode; finite logits.  Prints prefill ms, decode ms a step,
+    tokens/s, peak memory and a profile of WHISPER_PROFILE_STEPS steady
+    steps (past the arena's end: each writes its last slot and attends all
+    448).  Then the teacher-forced check.  Returns the launches of the
+    prefill (K4) and the decode (K6)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.train.steps import make_decode_step, make_prefill_step
+
+    _free()
+    cfg = get_config(WHISPER_ARCH)
+    enc_layers = sum(len(p) * r for p, r in cfg.encoder.stages)
+    dec_layers = cfg.num_layers
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    frames, toks = _whisper_inputs(cfg, dev)
+    extras = {"encoder_frames": frames}
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    b, prompt = WHISPER_BATCH, toks[:, :WHISPER_PROMPT]
+    print(f"{WHISPER_ARCH} serving at full width and depth ({M.param_count(cfg):,} parameters): "
+          f"prefill {b} x {WHISPER_PROMPT} tokens over {cfg.encoder.num_frames} frames, "
+          f"extend_cache by {WHISPER_DECODE}, {WHISPER_DECODE} greedy decode steps")
+    warm, _ = prefill(params, prompt, extras)  # first-call costs out of the timed prefill
+    decode(params, M.extend_cache(cfg, warm, 1), prompt[:, -1:])
+    del warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    cache, logits = prefill(params, prompt, extras)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    pre, pre_entries = dict(ops.LAUNCHES), dict(ops.ENTRY_LAUNCHES)
+    want = enc_layers + 2 * dec_layers
+    print(f"  prefill {1e3 * prefill_s:.2f} ms ({b * WHISPER_PROMPT / prefill_s:.0f} tokens/s), "
+          f"peak memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; launches {pre}, "
+          f"by entry point {pre_entries}")
+    check(pre["flash_attention"] == want, f"prefill launched K4 {pre['flash_attention']} times, "
+          f"want {want}")
+    check(pre_entries.get("repro_torch_flash_attention_wgmma", 0) == want,
+          "a prefill K4 launch missed the tensor-core kernel")
+    check(pre["flash_decode"] == 0, f"prefill launched K6 {pre['flash_decode']} times")
+    check(bool(torch.isfinite(logits).all()), "prefill logits not finite")
+    layer = cache["stages"][0][0]
+    check(tuple(layer["ck"].shape) == (dec_layers, b, cfg.encoder.num_frames, cfg.num_kv_heads,
+                                       cfg.kq_dim), f"cross cache {tuple(layer['ck'].shape)}")
+    cache = M.extend_cache(cfg, cache, WHISPER_DECODE)
+    layer = cache["stages"][0][0]
+    cross = [layer["ck"].clone(), layer["cv"].clone()]
+    tok = _greedy(logits)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(WHISPER_DECODE):
+        cache, logits = decode(params, cache, tok)
+        tok = _greedy(logits)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    launches, entries = dict(ops.LAUNCHES), dict(ops.ENTRY_LAUNCHES)
+    want = 2 * dec_layers * WHISPER_DECODE
+    print(f"  decode {1e3 * decode_s / WHISPER_DECODE:.3f} ms a step (host clock, {b} rows, "
+          f"{b * WHISPER_DECODE / decode_s:.0f} tokens/s); launches {launches}, by entry point "
+          f"{entries}; peak memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    check(launches["flash_decode"] == want,
+          f"decode launched K6 {launches['flash_decode']} times, want {want}")
+    check(entries.get("repro_torch_flash_decode_cluster", 0) == want,
+          "a decode K6 launch missed the cluster kernel")
+    check(launches["flash_attention"] == 0, f"decode launched K4 {launches['flash_attention']} times")
+    check(torch.equal(layer["ck"], cross[0]) and torch.equal(layer["cv"], cross[1]),
+          "decode wrote the cross K/V")
+    print("  the cross K/V are unchanged by decode (torch.equal)")
+    check(bool(torch.isfinite(logits).all()), "decode logits not finite")
+    check(int(cache["pos"]) == WHISPER_PROMPT + WHISPER_DECODE, f"pos {int(cache['pos'])}")
+    state = {"cache": cache, "tok": tok}
+
+    def one_step():
+        state["cache"], lg = decode(params, state["cache"], state["tok"])
+        state["tok"] = _greedy(lg)
+
+    _, events, wall = _profiled(one_step, WHISPER_PROFILE_STEPS)
+    busy_ms = 1e-3 * sum(e.self_device_time_total for e in events) / WHISPER_PROFILE_STEPS
+    print(f"  profile of {WHISPER_PROFILE_STEPS} decode steps: wall "
+          f"{1e3 * wall / WHISPER_PROFILE_STEPS:.3f} ms/step under the profiler, device busy "
+          f"{busy_ms:.3f} ms/step; busy share {busy_ms / (1e3 * decode_s / WHISPER_DECODE):.3f} "
+          "of the unprofiled step")
+    _top(events, WHISPER_PROFILE_STEPS, "step")
+    del cache, state
+    whisper_teacher_forced_check(cfg, params, frames, toks, dev)
+    del params
+    _free()
+    return {"flash_attention": pre["flash_attention"], "flash_decode": launches["flash_decode"]}
+
+
+def whisper_teacher_forced_check(cfg, params, frames, toks, dev):
+    """prefill(WHISPER_TEACHER_PROMPT) -> ``extend_cache`` -> teacher-forced
+    decode of the rest of WHISPER_PROMPT against prefill(WHISPER_PROMPT)'s
+    last logits, all 8 rows, as
+    ``tests/test_multihost.py::test_extend_cache_decode_matches_prefill``:
+    f32 compute at F32_LOGITS_TOL (K4 and K6 on their f32 kernels at D 64),
+    bf16 at BF16_LOGITS_TOL (the tensor-core K4, the cluster K6); the
+    launches counted by entry point."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+
+    p, n, layers = WHISPER_TEACHER_PROMPT, WHISPER_PROMPT, cfg.num_layers
+    k4 = sum(len(q) * r for q, r in cfg.encoder.stages) + 2 * layers
+    extras = {"encoder_frames": frames}
+    print(f"  teacher-forced: prefill({p}) -> extend_cache({n - p}) -> {n - p} decode steps vs "
+          f"prefill({n}), {toks.shape[0]} rows:")
+    for dtype, tol, fa, fd in (
+            ("float32", F32_LOGITS_TOL, "repro_torch_flash_attention", "repro_torch_flash_decode"),
+            ("bfloat16", BF16_LOGITS_TOL, "repro_torch_flash_attention_wgmma",
+             "repro_torch_flash_decode_cluster")):
+        c = cfg.replace(dtype=dtype)
+        ops.reset_launch_counts()
+        _, want = M.prefill(c, params, toks[:, :n], extras)
+        cache, _ = M.prefill(c, params, toks[:, :p], extras)
+        cache = M.extend_cache(c, cache, n - p)
+        for i in range(p, n):
+            cache, got = M.decode_step(c, params, cache, toks[:, i:i + 1])
+        torch.cuda.synchronize()
+        entries = dict(ops.ENTRY_LAUNCHES)
+        check(entries.get(fa, 0) == 2 * k4 and entries.get(fd, 0) == 2 * layers * (n - p),
+              f"{dtype}: launches by entry point {entries}")
+        compare(f"{dtype}: last logits {tuple(got.shape)} (logits max "
+                f"|{float(want.float().abs().max()):.3f}|; {_entries(ops)})", got, want, tol)
+
+
+def qwen_vl_phase(dev):
+    """qwen2-vl-72b at full width and QWEN_VL_LAYERS of its 80 layers
+    (random f32 weights from seed 0): a prompt of QWEN_VL_TOKENS tokens
+    with an image of QWEN_VL_IMAGE patches, its M-RoPE positions as
+    Qwen2-VL lays them out (``layers.positional.vl_positions``); prefill
+    against as many teacher-forced decode steps, each with its (1, 3, 1) positions
+    (``_dtype_checks``: f32 at F32_LOGITS_TOL, bf16 at BF16_LOGITS_TOL; K4
+    and K6 at group 8, D 128); then the same prefill without
+    ``positions_3d`` (every stream at the token's index) must differ by
+    more than each tolerance, so the image's positions are read.  The peak
+    stays 5 GiB under the card's memory."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.layers.positional import vl_positions
+    from repro_torch.models import model as M
+
+    _free()
+    full = get_config(QWEN_VL_ARCH)
+    cfg = full.replace(stages=((full.stages[0][0], QWEN_VL_LAYERS),))
+    check(ops._attention_kernel(torch.bfloat16, cfg.kq_dim, cfg.num_heads // cfg.num_kv_heads)
+          == "wgmma" and ops._decode_kernel(torch.bfloat16, cfg.kq_dim) == "cluster",
+          f"{QWEN_VL_ARCH} does not route to the tensor-core K4 and the cluster K6")
+    card_gib = torch.cuda.get_device_properties(dev).total_memory / 2**30
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    toks = torch.randint(1, cfg.vocab_size, (1, QWEN_VL_TOKENS),
+                         generator=torch.Generator(device=dev).manual_seed(7), device=dev)
+    pos3d = vl_positions(QWEN_VL_TOKENS, QWEN_VL_TEXT, QWEN_VL_IMAGE, dev)[None]
+    print(f"{QWEN_VL_ARCH} ({cfg.num_layers} of {full.num_layers} layers, full width, "
+          f"{M.param_count(cfg):,} parameters, M-RoPE sections {cfg.mrope_sections}): prefill of "
+          f"{QWEN_VL_TOKENS} tokens ({QWEN_VL_TEXT} text, {QWEN_VL_IMAGE[0]} x {QWEN_VL_IMAGE[1]} "
+          f"image patches, text) vs teacher-forced decode with per-step positions_3d; positions "
+          f"t {pos3d[0, 0].tolist()}")
+    prefills = _dtype_checks(cfg, cfg, params, toks, dev, QWEN_VL_ARCH, BF16_LOGITS_TOL, pos3d)
+    for dtype, tol in (("float32", F32_LOGITS_TOL), ("bfloat16", BF16_LOGITS_TOL)):
+        _, plain = M.prefill(cfg.replace(dtype=dtype), params, toks)
+        gap = float((plain.float() - prefills[dtype]).abs().max())
+        print(f"  {dtype}: default positions vs positions_3d, prefill logits max_abs_diff "
+              f"{gap:.3e} (must exceed {tol:g})")
+        check(gap > tol, f"{dtype}: positions_3d did not move the logits")
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    print(f"  peak memory {peak:.2f} of {card_gib:.2f} GiB")
+    check(peak <= card_gib - 5, f"{QWEN_VL_ARCH} peaks at {peak:.2f} GiB, less than 5 GiB under "
+          "the card's memory")
+    del params
+    _free()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2849,6 +3330,7 @@ def main() -> int:
     instruction_counts(lib)
 
     rows = kernel_phase(dev)
+    whisper_kernels = whisper_kernel_phase(dev)
     wide_decode = decode256_phase(dev)
     gathers = gather_kernel_phase(dev)
     scans = rglru_kernel_phase(dev)
@@ -2896,17 +3378,26 @@ def main() -> int:
     t0 = time.perf_counter()
     xlstm_decode_phase(dev, slstm)
     print(f"{XLSTM_ARCH} prefill and decode phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    whisper_train_phase(dev)
+    whisper_launches = whisper_serve_phase(dev)
+    print(f"{WHISPER_ARCH} phases {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    qwen_vl_phase(dev)
+    print(f"{QWEN_VL_ARCH} phase {time.perf_counter() - t0:.1f} s")
     for row in rows:
         if row["name"] == "flash_decode":
             row["head_dim_256"] = dict(wide_decode, launches=rg_launches["flash_decode"])
         if row["name"] in ("flash_attention", "flash_decode"):
             row["qwen2_moe_serve_launches"] = moe_launches[row["name"]]
             row["head_dim_160"]["stablelm_serve_launches"] = stablelm_launches[row["name"]]
+            row["whisper"] = dict(whisper_kernels[row["name"]],
+                                  serve_launches=whisper_launches[row["name"]])
     for name in ("rglru_scan", "rglru_scan_bwd"):
         rows.append(dict(scans[name], launches=train_launches[name]))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "context_4096", "head_dim_160",
-            "head_dim_256", "qwen2_moe_serve_launches", "b1_ms",
+            "head_dim_256", "qwen2_moe_serve_launches", "whisper", "b1_ms",
             "device_ids_ms", "device_ids_bound_ms", "bandwidth_ms")
     print(json.dumps({"kernels": [{k: row[k] for k in keys if k in row} for row in rows]}))
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,7 @@
 
 Every module exposes ``full_config()`` (the exact published dims) and
 ``smoke_config()`` (a reduced same-family config runnable on the CPU).
-Only the architectures whose block kinds the port runs are listed.
+All ten of the JAX package's architectures are listed.
 """
 from __future__ import annotations
 
@@ -17,8 +17,10 @@ _MODULES = {
     "minitron-8b": "repro_torch.configs.minitron_8b",
     "phi4-mini-3.8b": "repro_torch.configs.phi4_mini_3_8b",
     "qwen2-moe-a2.7b": "repro_torch.configs.qwen2_moe_a2_7b",
+    "qwen2-vl-72b": "repro_torch.configs.qwen2_vl_72b",
     "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
     "stablelm-12b": "repro_torch.configs.stablelm_12b",
+    "whisper-tiny": "repro_torch.configs.whisper_tiny",
     "xlstm-1.3b": "repro_torch.configs.xlstm_1_3b",
 }
 

@@ -59,6 +59,25 @@ def flash_attention(q, k, v, causal: bool = True):
     return sdpa(q, k, v, mask=mask)
 
 
+def edge_probe(q_shape, kv_shape, dtype, generator):
+    """Attention inputs whose answer hangs on the last key and on nothing
+    past it: q ~ N(1, 1) and k ~ N(-1, 1), so each key scores about
+    -sqrt(D) (-8 at D 64), but the last key is zero and scores 0, the
+    row's largest, and its value is v ~ N(1, 1) raised by 4.  Attention
+    that drops the last key (a ragged last tile cut off, ``cur`` one
+    short) or lets zero-filled keys past T score 0 (an edge mask missing)
+    moves an output by O(1); with N(0, 1) inputs over 1,500 keys either
+    fault moves it by about 1e-3.  ``q_shape`` (B, S, H, D), ``kv_shape``
+    (B, T, K, D); drawn on ``generator``'s device."""
+    dev = generator.device
+    q = torch.randn(*q_shape, generator=generator, device=dev) + 1
+    k = torch.randn(*kv_shape, generator=generator, device=dev) - 1
+    v = torch.randn(*kv_shape, generator=generator, device=dev) + 1
+    k[:, -1] = 0
+    v[:, -1] += 4
+    return q.to(dtype), k.to(dtype), v.to(dtype)
+
+
 def _grouped_sdpa(q, k, v, mask):
     """Grouped path: caches stay at K heads.  mask broadcastable to
     (B,K,G,S,T)."""

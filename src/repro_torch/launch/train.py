@@ -22,7 +22,10 @@ prefetch along the shuffler's index stream; batch bytes unchanged) and
 adds the summary's ``cache`` block, and, over two or more epochs, the
 ``drift`` block (``--drift-device`` also prices the reads through a
 Table 2 device model).  The multi-host cluster (``--hosts > 1``) is not
-ported yet and is refused, so the summary has no ``distributed``.
+ported yet and is refused, so the summary has no ``distributed``.  A
+config with an encoder (whisper-tiny) fails at its first step with an
+error naming ``encoder_frames``, which the record batches do not carry
+(the JAX launcher fails there too).
 """
 from __future__ import annotations
 

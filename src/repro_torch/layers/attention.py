@@ -34,7 +34,7 @@ def init_attn(generator, d_model: int, num_heads: int, num_kv_heads: int,
     }
 
 
-def _project(x: torch.Tensor, w: torch.Tensor, dtype) -> torch.Tensor:
+def project(x: torch.Tensor, w: torch.Tensor, dtype) -> torch.Tensor:
     """einsum('bsd,dhk->bshk') as one matrix product."""
     d, h, k = w.shape
     return (x @ cast(w.reshape(d, h * k), dtype)).unflatten(-1, (h, k))
@@ -42,9 +42,9 @@ def _project(x: torch.Tensor, w: torch.Tensor, dtype) -> torch.Tensor:
 
 def qkv(params, x: torch.Tensor, dtype):
     return (
-        _project(x, params["wq"], dtype),
-        _project(x, params["wk"], dtype),
-        _project(x, params["wv"], dtype),
+        project(x, params["wq"], dtype),
+        project(x, params["wk"], dtype),
+        project(x, params["wv"], dtype),
     )
 
 

@@ -1,8 +1,8 @@
 """Block-level init/apply dispatch.
 
-A *block* is one residual unit of a stage pattern.  The port runs the
-``attn``, ``local_attn``, ``rglru``, ``moe``, ``mlstm`` and ``slstm``
-kinds in the JAX package's three modes:
+A *block* is one residual unit of a stage pattern.  The port runs every
+kind of the JAX package (``attn``, ``local_attn``, ``rglru``, ``moe``,
+``mlstm``, ``slstm``, ``enc_attn``, ``dec_attn``) in its three modes:
     train    full sequence, no cache
     prefill  full sequence, emits a decode cache
     decode   one token, updates its cache in place and returns it
@@ -11,12 +11,21 @@ a ``moe`` block (an f32 scalar) and ``0.0`` for the other kinds.  A
 ``moe`` block is an ``attn`` block whose FFN is ``layers/moe.py``'s; an
 ``mlstm`` block is the mLSTM layer alone (no second norm, no FFN), an
 ``slstm`` block the sLSTM layer and a GeGLU FFN of ``_slstm_ff`` units.
+An ``enc_attn`` block (the encoder's) is bidirectional attention and an
+FFN, run in train and prefill only: the plain ``sdpa`` in training, the
+attention kernel (K4) with ``causal=False`` in prefill.  A ``dec_attn``
+block is the ``attn`` kind's causal self-attention, then cross-attention
+from the decoder's queries to the encoder output's projections ``ck``/
+``cv`` (no RoPE), then the FFN; prefill caches ``ck``/``cv`` beside
+``k``/``v``, and decode reads them (K6 at ``cur = T - 1``: every frame)
+and never writes them.
 Decode (``M.decode_step``) takes one scalar position for the batch, or,
-for ``attn`` and ``moe`` blocks, one position per row (continuous
-batching, the JAX package's ``M.decode_step_slots``); both write and
-attend through one path.  Per-row positions with a ``local_attn`` block
-are refused: the JAX package cannot run them either (its ring write is a
-``dynamic_update_slice`` at a scalar slot).  Other kinds are refused.
+for ``attn``, ``moe`` and ``dec_attn`` blocks, one position per row
+(continuous batching, the JAX package's ``M.decode_step_slots``); both
+write and attend through one path.  Per-row positions with a
+``local_attn`` block are refused: the JAX package cannot run them either
+(its ring write is a ``dynamic_update_slice`` at a scalar slot).  An
+unknown kind raises ``ValueError``, as in the JAX package.
 
 In training, ``aux["remat_segments"]`` (``remat="dots"``) runs each
 block's work between its matrix products in remat segments
@@ -37,15 +46,13 @@ from repro_torch.layers.mlp import apply_ffn, init_ffn
 from repro_torch.layers.positional import apply_rope
 from repro_torch.models.config import ModelConfig
 
-PORTED_KINDS = ("attn", "local_attn", "rglru", "moe", "mlstm", "slstm")
+PORTED_KINDS = ("attn", "local_attn", "rglru", "moe", "mlstm", "slstm", "enc_attn", "dec_attn")
 ATTN_IMPLS = ("full", "blocked")
 
 
 def _check_kind(kind: str) -> None:
     if kind not in PORTED_KINDS:
-        raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet; repro_torch runs {PORTED_KINDS} blocks"
-        )
+        raise ValueError(f"unknown block kind {kind!r}; one of {PORTED_KINDS}")
 
 
 def _slstm_ff(cfg: ModelConfig) -> int:
@@ -71,6 +78,9 @@ def init_block(generator, kind: str, cfg: ModelConfig, device):
     else:
         p["attn"] = attn.init_attn(generator, d, h, kv, hd, dt, device)
     p["norm2"] = torch.zeros((d,), dtype=dt, device=device)
+    if kind == "dec_attn":
+        p["cross"] = attn.init_attn(generator, d, h, kv, hd, dt, device)
+        p["norm3"] = torch.zeros((d,), dtype=dt, device=device)
     if kind == "moe":
         p["moe"] = moe_lib.init_moe(generator, cfg, cfg.moe, dt, device)
     elif kind == "slstm":
@@ -81,9 +91,10 @@ def init_block(generator, kind: str, cfg: ModelConfig, device):
 
 
 def init_cache(kind: str, cfg: ModelConfig, batch: int, capacity: int, device):
-    """Per-block decode cache: zeroed K/V (B, C, K, D) for ``attn`` and
-    ``moe``, a ring of ``min(window, C)`` slots for ``local_attn``, both in
-    the compute dtype; for ``rglru`` the state ``h`` (B, W) in f32 and the
+    """Per-block decode cache: zeroed K/V (B, C, K, D) for ``attn``,
+    ``moe`` and ``dec_attn`` (which also has the cross K/V ``ck``/``cv``,
+    (B, encoder frames, K, D)), a ring of ``min(window, C)`` slots for
+    ``local_attn``, all in the compute dtype; for ``rglru`` the state ``h`` (B, W) in f32 and the
     conv history (B, CW-1, W) in the compute dtype; for ``mlstm`` ``C``
     (B, H, hd, hd), ``n`` (B, H, hd) and ``m`` (B, H), for ``slstm`` ``c``,
     ``n``, ``m`` and ``h`` (B, H, hd), all f32, zero but the stabiliser
@@ -106,11 +117,19 @@ def init_cache(kind: str, cfg: ModelConfig, batch: int, capacity: int, device):
             "h": torch.zeros((batch, w), dtype=torch.float32, device=device),
             "conv": torch.zeros((batch, cfg.conv_width - 1, w), dtype=dt, device=device),
         }
+    if kind == "enc_attn":
+        raise ValueError("enc_attn blocks run in the encoder, which keeps no decode cache")
     if kind == "local_attn":
         capacity = min(cfg.local_window, capacity)
     shape = (batch, capacity, cfg.num_kv_heads, cfg.kq_dim)
-    return {"k": torch.zeros(shape, dtype=dt, device=device),
-            "v": torch.zeros(shape, dtype=dt, device=device)}
+    out = {"k": torch.zeros(shape, dtype=dt, device=device),
+           "v": torch.zeros(shape, dtype=dt, device=device)}
+    if kind == "dec_attn":
+        frames = cfg.encoder.num_frames if cfg.encoder else 0
+        shape = (batch, frames, cfg.num_kv_heads, cfg.kq_dim)
+        out["ck"] = torch.zeros(shape, dtype=dt, device=device)
+        out["cv"] = torch.zeros(shape, dtype=dt, device=device)
+    return out
 
 
 def _causal(q, k, v, cfg: ModelConfig, mode: str, ckpt: bool):
@@ -137,6 +156,14 @@ def _self_attention(p, x, cfg: ModelConfig, kind: str, mode: str, cache, pos, au
     angles = aux.get("rope_angles")
     if angles is not None:
         q, k = segment(ckpt, _rope, q, k, angles)
+    if kind == "enc_attn":  # bidirectional, no cache
+        if mode == "train":
+            o = attn.sdpa(q, k, v, ckpt=ckpt)
+        elif mode == "prefill":
+            o = attn.full_attention(q, k, v, causal=False)
+        else:
+            raise ValueError("enc_attn blocks run in train and prefill only")
+        return attn.out_proj(p["attn"], o, dt), None
     if mode == "train":
         if kind == "local_attn":
             o = attn.local_attention(q, k, v, cfg.local_window, ckpt)
@@ -180,6 +207,32 @@ def _self_attention(p, x, cfg: ModelConfig, kind: str, mode: str, cache, pos, au
     else:
         o = attn.decode_attention(q, ck, cv, cur)
     return attn.out_proj(p["attn"], o, dt), cache
+
+
+def _cross_attention(p, x, cfg: ModelConfig, mode: str, cache, aux, ckpt):
+    """A ``dec_attn`` block's cross-attention: queries from ``x``, keys and
+    values the projections of the encoder output ``aux["enc"]`` in train
+    and prefill (prefill caches them as ``ck``/``cv``), the cache's in
+    decode.  The plain ``sdpa`` in training, K4 with ``causal=False`` in
+    prefill, K6 with every row at ``aux["cross_cur"]`` (T - 1: all T
+    frames, built once a step by ``forward_hidden``) in decode, where
+    JAX's ``sdpa`` is unmasked.  Returns ``(out, new cache leaves)``."""
+    dt = cfg.compute_dtype
+    if mode == "decode":
+        ck, cv, new = cache["ck"], cache["cv"], {}
+    else:
+        enc = aux["enc"]
+        ck = attn.project(enc, p["cross"]["wk"], dt)
+        cv = attn.project(enc, p["cross"]["wv"], dt)
+        new = {"ck": ck, "cv": cv} if mode == "prefill" else {}
+    q = attn.project(x, p["cross"]["wq"], dt)
+    if mode == "train":
+        o = attn.sdpa(q, ck, cv, ckpt=ckpt)
+    elif mode == "prefill":
+        o = attn.full_attention(q, ck, cv, causal=False)
+    else:
+        o = attn.decode_attention(q, ck, cv, aux["cross_cur"])
+    return attn.out_proj(p["cross"], o, dt), new
 
 
 def _rglru(p, x, cfg: ModelConfig, mode: str, cache, ckpt: bool):
@@ -247,9 +300,16 @@ def apply_block(
     elif kind == "slstm":
         o, new_cache = _slstm(p, h, cfg, mode, cache)
     else:
-        o, new_cache = _self_attention(p, h, cfg, kind, mode, cache, pos, aux, ckpt)
+        self_kind = "attn" if kind == "dec_attn" else kind
+        o, new_cache = _self_attention(p, h, cfg, self_kind, mode, cache, pos, aux, ckpt)
     x = x + o
     h2 = segment(ckpt, rms_norm, x, p["norm2"], cfg.norm_eps)
+    if kind == "dec_attn":
+        o, cross = _cross_attention(p, h2, cfg, mode, cache, aux, ckpt)
+        if cross:
+            new_cache = dict(new_cache, **cross)
+        x = x + o
+        h2 = segment(ckpt, rms_norm, x, p["norm3"], cfg.norm_eps)
     if kind == "moe":
         y, aloss = moe_lib.apply_moe(p["moe"], h2, cfg, cfg.moe, dt, ckpt)
         return x + y, new_cache, aloss

@@ -7,8 +7,7 @@ recurrentgemma is ``(("rglru", "rglru", "local_attn"), 8)`` followed by
 leading ``repeats`` axis, as in the JAX package, so weights carry across
 leaf for leaf.
 
-Block kinds (the port runs ``attn``, ``local_attn``, ``moe`` and
-``rglru``; ``models/blocks.py`` refuses the others):
+Block kinds (the port runs all of them):
   attn        pre-norm causal GQA self-attention + pre-norm FFN
   local_attn  as above with sliding-window attention
   enc_attn    bidirectional attention + FFN (encoder)

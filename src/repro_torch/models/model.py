@@ -7,13 +7,22 @@ position per row (``prefill_at``, ``write_prefill_slot``, and
 
 Parameters mirror the JAX tree: ``{"embed", "stages", "final_norm",
 "lm_head"}`` with every stage a tuple (one entry per pattern position) of
-dicts whose leaves are stacked on a leading ``repeats`` axis.  Decode
-caches likewise: ``{"pos": () or (B,) int32, "stages": [tuple of per-kind
-leaves stacked (L, ...)]}``, the kinds' leaves as ``blocks.init_cache``
-makes them (``attn`` and ``moe`` K/V, ``local_attn`` rings, ``rglru``
-``h`` and ``conv``, ``mlstm`` ``C``/``n``/``m`` and ``slstm``
-``c``/``n``/``m``/``h``).  A Python loop over the stacked layers takes the
-place of ``lax.scan``.
+dicts whose leaves are stacked on a leading ``repeats`` axis, and for a
+config with an encoder (whisper) ``"encoder": {"stages", "norm"}`` plus
+``"proj"`` where ``d_input != d_model``.  Decode caches likewise:
+``{"pos": () or (B,) int32, "stages": [tuple of per-kind leaves stacked
+(L, ...)]}``, the kinds' leaves as ``blocks.init_cache`` makes them
+(``attn`` and ``moe`` K/V, ``dec_attn`` K/V and cross K/V ``ck``/``cv``,
+``local_attn`` rings, ``rglru`` ``h`` and ``conv``, ``mlstm``
+``C``/``n``/``m`` and ``slstm`` ``c``/``n``/``m``/``h``).  A Python loop
+over the stacked layers takes the place of ``lax.scan``.
+
+The batch extras, as in the JAX package: ``encoder_frames`` (B, frames,
+d_input), the encoder's input in training and prefill (decode reads the
+cross K/V from the cache); ``positions`` (B, S), RoPE's positions;
+``positions_3d`` (B, 3, S), M-RoPE's (temporal, height, width) streams.
+A missing position extra defaults to ``offset + arange(S)`` (per stream).
+A key the config would not read, which JAX ignores, is refused by name.
 
 Training rematerialises as the JAX package's ``_remat_wrap`` does, with
 ``torch.utils.checkpoint``.  ``remat="full"`` checkpoints one pattern
@@ -40,7 +49,12 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.layers.common import cast, dense_init, recast_weights, rms_norm
-from repro_torch.layers.positional import default_positions, rope_angles
+from repro_torch.layers.positional import (
+    default_positions,
+    mrope_angles,
+    rope_angles,
+    sinusoidal,
+)
 from repro_torch.models.blocks import apply_block, init_block, init_cache
 from repro_torch.models.config import ModelConfig
 from repro_torch.utils.tree import (
@@ -90,22 +104,28 @@ def _stacked(generator, kind: str, repeats: int, cfg: ModelConfig, device):
     return out
 
 
+def _init_stages(generator, stages, cfg: ModelConfig, device):
+    return [tuple(_stacked(generator, kind, repeats, cfg, device) for kind in pattern)
+            for pattern, repeats in stages]
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator, device) -> Dict[str, Any]:
     """Random parameters made on ``device`` from ``generator`` (which must
     live on the same device type)."""
-    if cfg.encoder is not None or cfg.mrope_sections:
-        raise NotImplementedError("encoders and M-RoPE are not ported yet")
     dt = cfg.store_dtype
     params: Dict[str, Any] = {
         "embed": dense_init((cfg.vocab_size, cfg.d_model), dt, generator, device, scale=0.02),
-        "stages": [
-            tuple(_stacked(generator, kind, repeats, cfg, device) for kind in pattern)
-            for pattern, repeats in cfg.stages
-        ],
+        "stages": _init_stages(generator, cfg.stages, cfg, device),
         "final_norm": torch.zeros((cfg.d_model,), dtype=dt, device=device),
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init((cfg.d_model, cfg.vocab_size), dt, generator, device)
+    if cfg.encoder is not None:
+        enc: Dict[str, Any] = {"stages": _init_stages(generator, cfg.encoder.stages, cfg, device)}
+        if cfg.encoder.d_input != cfg.d_model:
+            enc["proj"] = dense_init((cfg.encoder.d_input, cfg.d_model), dt, generator, device)
+        enc["norm"] = torch.zeros((cfg.d_model,), dtype=dt, device=device)
+        params["encoder"] = enc
     return params
 
 
@@ -173,10 +193,40 @@ def _run_stage_train(stage_params, pattern, repeats: int, x, cfg: ModelConfig, a
 # --------------------------------------------------------------- forward
 
 
-def _rope_aux(cfg: ModelConfig, batch_size: int, seq: int, offset, device):
-    if not cfg.rope:
+def _check_extras(cfg: ModelConfig, extras, mode: str) -> None:
+    """Refuse, by name, an extra this config and mode would not read (JAX
+    ignores it), and a missing ``encoder_frames`` where the encoder runs."""
+    read = set()
+    if cfg.encoder is not None and mode != "decode":
+        read.add("encoder_frames")
+    if cfg.mrope_sections:
+        read.add("positions_3d")
+    elif cfg.rope:
+        read.add("positions")
+    unread = sorted(set(extras) - read)
+    if unread:
+        raise ValueError(f"{cfg.name} does not read the batch extras {unread} in {mode} "
+                         f"(it reads {sorted(read) or 'none'})")
+    if "encoder_frames" in read and "encoder_frames" not in extras:
+        enc = cfg.encoder
+        raise ValueError(f"{cfg.name} has an encoder: {mode} needs the batch extra "
+                         f"encoder_frames (B, {enc.num_frames}, {enc.d_input})")
+
+
+def _rope_aux(cfg: ModelConfig, batch_size: int, seq: int, offset, device, extras):
+    """RoPE or M-RoPE angles from the position extras, else from
+    ``offset + arange(seq)`` (``offset`` the decode position)."""
+    if not cfg.rope and not cfg.mrope_sections:
         return {}
-    positions = default_positions(batch_size, seq, offset, device)
+    if cfg.mrope_sections:
+        p3 = extras.get("positions_3d")
+        if p3 is None:
+            base = default_positions(batch_size, seq, offset, device)
+            p3 = torch.stack([base, base, base], dim=1)
+        return {"rope_angles": mrope_angles(p3, cfg.kq_dim, cfg.rope_theta, cfg.mrope_sections)}
+    positions = extras.get("positions")
+    if positions is None:
+        positions = default_positions(batch_size, seq, offset, device)
     return {"rope_angles": rope_angles(positions, cfg.kq_dim, cfg.rope_theta)}
 
 
@@ -189,22 +239,56 @@ def _logits(cfg: ModelConfig, params, hidden: torch.Tensor) -> torch.Tensor:
     return hidden @ cast(w, cfg.compute_dtype)
 
 
+def encode(cfg: ModelConfig, params, frames: torch.Tensor, mode: str = "train") -> torch.Tensor:
+    """The whisper-style encoder over precomputed (stub) frontend frames
+    (B, F, d_input): cast to the compute dtype, the optional ``proj``,
+    plus the sinusoidal table, the encoder stages (no RoPE), then the
+    encoder's norm.  ``mode='train'`` runs the stages through
+    ``_run_stage_train`` (remat as the decoder's), ``'prefill'`` as a
+    plain layer loop whose attention is K4 with ``causal=False``; both
+    compute JAX's ``encode``.  Its aux loss is dropped, as in JAX."""
+    enc = params["encoder"]
+    dt = cfg.compute_dtype
+    x = frames.to(dt)
+    if "proj" in enc:
+        x = x @ cast(enc["proj"], dt)
+    x = x + sinusoidal(x.shape[1], cfg.d_model, dt, x.device)
+    for si, (pattern, repeats) in enumerate(cfg.encoder.stages):
+        sp = enc["stages"][si]
+        if mode == "train":
+            x, _ = _run_stage_train(sp, pattern, repeats, x, cfg, {})
+            continue
+        for lp in _unstack(sp, repeats):
+            for pi, kind in enumerate(pattern):
+                x, _, _ = apply_block(kind, lp[pi], x, cfg, mode)
+    return rms_norm(x, enc["norm"], cfg.norm_eps)
+
+
 def forward_hidden(cfg: ModelConfig, params, tokens: torch.Tensor, mode: str,
-                   caches=None, pos=None):
+                   caches=None, pos=None, extras=None):
     """Returns ``(hidden, stage caches, aux loss)``.  ``mode='train'``: no
     caches; each pattern period rematerialised per ``cfg.remat``.
     ``mode='prefill'``: every cache leaf stacked (L, B, ...).
     ``mode='decode'``: tokens (B, 1) at position ``pos``, one for the
     batch (a 0-d tensor) or one per row (B,); the caches' leaves are
-    updated in place and returned.  The aux loss (an f32 scalar) sums
-    the ``moe`` blocks' load-balancing losses in training; it is zero
-    in prefill and decode, whose callers drop it."""
+    updated in place and returned.  ``extras``: the batch extras (module
+    docstring).  The aux loss (an f32 scalar) sums the ``moe`` blocks'
+    load-balancing losses in training; it is zero in prefill and decode,
+    whose callers drop it."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode must be train|prefill|decode, got {mode!r}")
+    extras = extras or {}
+    _check_extras(cfg, extras, mode)
     b, s = tokens.shape
     x = _embed(cfg, params, tokens)
     offset = pos if mode == "decode" else 0
-    aux = _rope_aux(cfg, b, s, offset, tokens.device)
+    aux = _rope_aux(cfg, b, s, offset, tokens.device, extras)
+    if "encoder_frames" in extras:
+        aux["enc"] = encode(cfg, params, extras["encoder_frames"], mode)
+    if mode == "decode" and cfg.encoder is not None:
+        # cross-attention attends every cached frame: cur = T - 1 on every row
+        t = next(c["ck"].shape[2] for stage in caches["stages"] for c in stage if "ck" in c)
+        aux["cross_cur"] = torch.full((b,), t - 1, dtype=torch.int32, device=tokens.device)
     aloss = torch.zeros((), dtype=torch.float32, device=tokens.device)
     new_caches = []
     for si, (pattern, repeats) in enumerate(cfg.stages):
@@ -242,15 +326,14 @@ def forward_hidden(cfg: ModelConfig, params, tokens: torch.Tensor, mode: str,
 def loss_fn(cfg: ModelConfig, params, batch):
     """Mean next-token cross-entropy over labels >= 0 (negative labels are
     masked), plus ``AUX_LOSS_WEIGHT`` times the aux loss.  ``batch``:
-    ``tokens`` and ``labels`` (B, S) int tensors.  The logits are taken in
-    the compute dtype, then f32; ``cfg.loss_chunk`` splits the sequence
-    into chunks summed in order; ``cfg.loss_impl`` is "log_softmax" or
-    "lse".  Returns ``(loss, {"ce", "aux"})``."""
+    ``tokens`` and ``labels`` (B, S) int tensors, and the extras the
+    config reads (module docstring).  The logits are taken in the compute
+    dtype, then f32; ``cfg.loss_chunk`` splits the sequence into chunks
+    summed in order; ``cfg.loss_impl`` is "log_softmax" or "lse".
+    Returns ``(loss, {"ce", "aux"})``."""
     tokens, labels = batch["tokens"], batch["labels"]
-    extras = sorted(set(batch) - {"tokens", "labels"})
-    if extras:
-        raise NotImplementedError(f"batch extras {extras} are not ported yet")
-    hidden, _, aloss = forward_hidden(cfg, params, tokens, "train")
+    extras = {k: v for k, v in batch.items() if k not in ("tokens", "labels")}
+    hidden, _, aloss = forward_hidden(cfg, params, tokens, "train", extras=extras)
     valid = (labels >= 0).float()
     safe_labels = labels.clamp(min=0).long()
 
@@ -280,47 +363,52 @@ def loss_fn(cfg: ModelConfig, params, batch):
 # --------------------------------------------------------------- serving
 
 
-def prefill(cfg: ModelConfig, params, tokens: torch.Tensor):
+def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, extras=None):
     """Prefill a whole batch of ``S`` tokens: logits at the last token and
     a decode cache at the scalar position ``S``.  ``local_attn`` rings hold
     ``min(window, S)`` slots, as in the JAX package: after a prompt shorter
     than the window, decode wraps inside a ring of the prompt's length."""
-    hidden, caches, _ = forward_hidden(cfg, params, tokens, "prefill")
+    hidden, caches, _ = forward_hidden(cfg, params, tokens, "prefill", extras=extras)
     pos = torch.tensor(tokens.shape[1], dtype=torch.int32, device=tokens.device)
     return {"pos": pos, "stages": caches}, _logits(cfg, params, hidden[:, -1])
 
 
-def decode_step(cfg: ModelConfig, params, cache, tokens: torch.Tensor):
+def decode_step(cfg: ModelConfig, params, cache, tokens: torch.Tensor, extras=None):
     """tokens: (B, 1), appended at ``cache['pos']``: a scalar for the
     batch (a 0-d tensor), or one position per row (B,), where row ``i``
     appends at ``pos[i]`` (clamped to the arena's last slot) and attends
     ``<= pos[i]``: the JAX package's ``decode_step_slots``, the
     continuous-batching primitive.  Unlike the JAX functions, the cache's
     leaves are updated in place; the returned cache holds the same leaves
-    and ``pos + 1``."""
+    and ``pos + 1``.  ``extras``: this step's ``positions`` (B, 1) or
+    ``positions_3d`` (B, 3, 1), else ``pos``."""
     pos = cache["pos"]
-    hidden, stages, _ = forward_hidden(cfg, params, tokens, "decode", caches=cache, pos=pos)
+    hidden, stages, _ = forward_hidden(cfg, params, tokens, "decode", caches=cache, pos=pos,
+                                       extras=extras)
     return {"pos": pos + 1, "stages": stages}, _logits(cfg, params, hidden[:, -1])
 
 
 def extend_cache(cfg: ModelConfig, cache, extra: int):
-    """Pad the ``attn`` and ``moe`` K/V capacity of a prefill cache by ``extra``
-    positions (new leaves); local-attention rings and recurrent state
-    leaves are untouched.  Stacked leaves are (L, B, T, K, D)."""
+    """Pad the self-attention K/V capacity (``attn``, ``moe``, ``dec_attn``)
+    of a prefill cache by ``extra`` positions (new leaves); the cross K/V,
+    local-attention rings and recurrent state leaves are untouched.
+    Stacked leaves are (L, B, T, K, D)."""
     stages = []
     for si, (pattern, _) in enumerate(cfg.stages):
         per_pos = []
         for pi, kind in enumerate(pattern):
             c = cache["stages"][si][pi]
-            if kind in ("attn", "moe"):
-                c = {key: torch.nn.functional.pad(x, (0, 0, 0, 0, 0, extra))
-                     for key, x in c.items()}
+            if kind in ("attn", "moe", "dec_attn"):
+                c = dict(c)
+                for key in ("k", "v"):
+                    c[key] = torch.nn.functional.pad(c[key], (0, 0, 0, 0, 0, extra))
             per_pos.append(c)
         stages.append(tuple(per_pos))
     return {"pos": cache["pos"], "stages": stages}
 
 
-def prefill_at(cfg: ModelConfig, params, tokens: torch.Tensor, lengths: torch.Tensor):
+def prefill_at(cfg: ModelConfig, params, tokens: torch.Tensor, lengths: torch.Tensor,
+               extras=None):
     """Right-padded prefill: logits at each row's *last real* token.
 
     ``tokens`` is (B, T) with row ``i`` real through ``lengths[i]`` and
@@ -328,7 +416,7 @@ def prefill_at(cfg: ModelConfig, params, tokens: torch.Tensor, lengths: torch.Te
     never attend the junk, and the returned per-row KV past ``lengths``
     is overwritten by decode writes before it is ever attended.
     """
-    hidden, caches, _ = forward_hidden(cfg, params, tokens, "prefill")
+    hidden, caches, _ = forward_hidden(cfg, params, tokens, "prefill", extras=extras)
     lengths = lengths.to(device=tokens.device, dtype=torch.int32)
     rows = torch.arange(tokens.shape[0], device=tokens.device)
     last = hidden[rows, lengths.long() - 1]

@@ -5,8 +5,10 @@ optional microbatching), prefill and decode.
 which takes the gradient of ``loss_fn`` by autograd and applies AdamW.
 The JAX step is jitted with its state donated; this one updates the
 state's tensors in place and returns the same state object, with the
-metrics as 0-d device tensors (reading them waits for the device).
-Gradient compression (``compressor``) is not ported yet.
+metrics as 0-d device tensors (reading them waits for the device).  A
+batch is ``tokens``, ``labels`` and the extras the config reads
+(``encoder_frames``, ``positions``, ``positions_3d``); microbatching
+splits every entry by rows.  Gradient compression (``compressor``) is not ported yet.
 """
 from __future__ import annotations
 
@@ -76,17 +78,19 @@ def make_train_step(cfg: ModelConfig, optimizer: AdamW, microbatches: int = 1,
 
 
 def make_prefill_step(cfg: ModelConfig):
-    """``prefill_step(params, tokens) -> (cache, logits)``: ``M.prefill``."""
-    def prefill_step(params, tokens):
-        return M.prefill(cfg, params, tokens)
+    """``prefill_step(params, tokens, extras=None) -> (cache, logits)``:
+    ``M.prefill``."""
+    def prefill_step(params, tokens, extras=None):
+        return M.prefill(cfg, params, tokens, extras)
 
     return prefill_step
 
 
 def make_decode_step(cfg: ModelConfig):
-    """``decode_step(params, cache, tokens) -> (cache, logits)``:
-    ``M.decode_step``, which updates the cache's leaves in place."""
-    def decode_step(params, cache, tokens):
-        return M.decode_step(cfg, params, cache, tokens)
+    """``decode_step(params, cache, tokens, extras=None) -> (cache,
+    logits)``: ``M.decode_step``, which updates the cache's leaves in
+    place."""
+    def decode_step(params, cache, tokens, extras=None):
+        return M.decode_step(cfg, params, cache, tokens, extras)
 
     return decode_step

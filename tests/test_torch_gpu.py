@@ -21,6 +21,11 @@ routes (host ids in the launch's parameters, or ids loaded on the card).  The sc
 backward ``rglru_scan_bwd``) is bit-exact against ``ref.rglru_scan`` /
 ``ref.rglru_scan_bwd``, which step through time as the kernels do, on
 the TMA ring kernel (W % 4 == 0) and the lanes kernel (the rest).
+whisper-tiny's shapes: K4 with ``causal=False`` at its encoder's (8,
+1500) and its cross-attention's (8, 384) x 1,500, K6 on its 1,500-frame
+cross cache at ``cur`` = T - 1 (cross-attention's), T - 2, 0 and past T,
+each on N(0, 1) inputs and on ``ref.edge_probe``'s, on which the same
+tolerance fails a planted fault at the ragged last key tile.
 """
 import pytest
 import torch
@@ -209,6 +214,102 @@ def test_flash_decode_one_row_on_card(cuda, t, dt):
         torch.cuda.synchronize()
         torch.testing.assert_close(got.float(), ref.flash_decode(q, k, v, cur).float(),
                                    rtol=TOL[dt], atol=TOL[dt])
+
+
+# whisper-tiny's attention (6 heads of 64, group 1): the encoder's
+# bidirectional (8, 1500) x (8, 1500), the decoder's cross-attention of 384
+# tokens against the 1,500 frames, and one decoder token against them
+WHISPER_ATTENTION = [(8, 1500, 1500), (8, 384, 1500), (1, 1, 1500)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("b,s,t", WHISPER_ATTENTION)
+def test_flash_attention_non_causal_at_whisper_shapes_on_card(cuda, b, s, t, dt):
+    """K4 with ``causal=False`` at whisper-tiny's encoder and cross shapes
+    (T = 1,500 is no whole number of 64-key tiles), bf16 on the
+    tensor-core kernel, f32 on the CUDA-core one; one launch a call."""
+    route = ops._attention_kernel(dt, 64, 1)
+    assert route == ("wgmma" if dt == torch.bfloat16 else "cuda_core")
+    g = torch.Generator(device=cuda).manual_seed(b + s + t)
+    q = torch.randn(b, s, 6, 64, generator=g, device=cuda).to(dt)
+    k, v = (torch.randn(b, t, 6, 64, generator=g, device=cuda).to(dt) for _ in range(2))
+    probe = ref.edge_probe((b, s, 6, 64), (b, t, 6, 64), dt, g)
+    ops.reset_launch_counts()
+    for q, k, v in ((q, k, v), probe):
+        got = ops.flash_attention(q, k, v, causal=False)
+        torch.cuda.synchronize()
+        want = ref.flash_attention(q, k, v, causal=False)
+        torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dt], atol=TOL[dt])
+    entry = "repro_torch_flash_attention" + ("_wgmma" if route == "wgmma" else "")
+    assert ops.ENTRY_LAUNCHES == {entry: 2}
+
+
+def _breaches(got, want, tol):
+    """Whether ``got`` fails ``assert_close(got, want, rtol=tol, atol=tol)``."""
+    got, want = got.float(), want.float()
+    return bool(((got - want).abs() > tol + tol * want.abs()).any())
+
+
+def _pad_keys(x, n):  # zero keys to n, as a TMA load past T fills them
+    return torch.cat([x, x.new_zeros(x.shape[0], n - x.shape[1], *x.shape[2:])], 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("b,s,t", WHISPER_ATTENTION)
+def test_whisper_edge_probe_sees_planted_faults_on_card(cuda, b, s, t, dt):
+    """On ``ref.edge_probe``'s inputs the tolerance above fails K4 and K6
+    with a planted fault at T = 1,500: the edge mask off (zero-filled keys
+    to 1,536 attended), the ragged last tile dropped (T = 1,472) and, for
+    K6, ``cur`` one short.  Each fault is the real kernel on the inputs
+    the faulty kernel would see."""
+    g = torch.Generator(device=cuda).manual_seed(b + s + t)
+    whole, cut, tol = -(-t // 64) * 64, t // 64 * 64, TOL[dt]
+    q, k, v = ref.edge_probe((b, s, 6, 64), (b, t, 6, 64), dt, g)
+    want = ref.flash_attention(q, k, v, causal=False)
+    assert not _breaches(ops.flash_attention(q, k, v, causal=False), want, tol)
+    assert _breaches(ops.flash_attention(q, _pad_keys(k, whole), _pad_keys(v, whole), False),
+                     want, tol)
+    assert _breaches(ops.flash_attention(q, k[:, :cut].contiguous(), v[:, :cut].contiguous(),
+                                         False), want, tol)
+    qd = q[:, 0].contiguous()
+    cur = torch.full((b,), t - 1, dtype=torch.int32, device=cuda)
+    want = ref.flash_decode(qd, k, v, cur)
+    assert not _breaches(ops.flash_decode(qd, k, v, cur), want, tol)
+    assert _breaches(ops.flash_decode(qd, k, v, cur - 1), want, tol)
+    assert _breaches(ops.flash_decode(qd, _pad_keys(k, whole), _pad_keys(v, whole),
+                                      cur + whole - t), want, tol)
+    assert _breaches(ops.flash_decode(qd, k[:, :cut].contiguous(), v[:, :cut].contiguous(),
+                                      cur + cut - t), want, tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("curs", ["last", "before_last", "first", "past", "mixed"])
+def test_flash_decode_on_whisper_cross_cache_on_card(cuda, curs, b, dt):
+    """K6 on whisper-tiny's cross cache (T = 1,500 frames, 6 KV heads of 64,
+    a ragged last 64-key tile), every row at T - 1 (what cross-attention
+    decode asks), T - 2, 0 or past T, and a mix; B = 1 and 8 (8 and 3
+    splits of the cluster kernel)."""
+    t = 1500
+    value = {"last": t - 1, "before_last": t - 2, "first": 0, "past": t + 9}
+    cur = ([0, 63, 64, 511, 512, t - 2, t - 1, t][:b] if curs == "mixed" else [value[curs]] * b)
+    g = torch.Generator(device=cuda).manual_seed(b + len(curs))
+    q = torch.randn(b, 6, 64, generator=g, device=cuda).to(dt)
+    k, v = (torch.randn(b, t, 6, 64, generator=g, device=cuda).to(dt) for _ in range(2))
+    pq, pk, pv = ref.edge_probe((b, 1, 6, 64), (b, t, 6, 64), dt, g)
+    cur = torch.tensor(cur, dtype=torch.int32, device=cuda)
+    ops.reset_launch_counts()
+    for q, k, v in ((q, k, v), (pq[:, 0].contiguous(), pk, pv)):
+        got = ops.flash_decode(q, k, v, cur)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), ref.flash_decode(q, k, v, cur).float(),
+                                   rtol=TOL[dt], atol=TOL[dt])
+    entry = {torch.bfloat16: "repro_torch_flash_decode_cluster",
+             torch.float32: "repro_torch_flash_decode"}[dt]
+    assert ops.ENTRY_LAUNCHES == {entry: 2}
 
 
 @pytest.mark.gpu

@@ -115,9 +115,18 @@ def test_init_params_on_generator_is_deterministic():
 
 
 def test_refuses_unported_block_kinds():
-    cfg = torch_smoke().replace(stages=((("attn", "dec_attn"), 1),))
-    with pytest.raises(NotImplementedError, match="dec_attn"):
-        tm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    """Every kind of the JAX package is ported; an unknown kind raises
+    ``ValueError`` in both packages' ``init_params``."""
+    from repro_torch.models.blocks import PORTED_KINDS
+
+    assert set(PORTED_KINDS) == {"attn", "local_attn", "enc_attn", "dec_attn", "moe", "rglru",
+                                 "mlstm", "slstm"}
+    stages = ((("attn", "conv_attn"), 1),)
+    with pytest.raises(ValueError, match="conv_attn"):
+        tm.init_params(torch_smoke().replace(stages=stages), torch.Generator().manual_seed(0),
+                       "cpu")
+    with pytest.raises(ValueError, match="conv_attn"):
+        jm.init_params(jax_smoke().replace(stages=stages), jax.random.PRNGKey(0))
 
 
 # ----------------------------------------------------- blocked attention
