@@ -113,8 +113,32 @@
    kernel, busy share, peak memory) under ``remat="dots"`` and again
    under ``"full"``, their step times and peaks side by side; each peak
    must stay 5 GiB under the card's memory (``"dots"`` saves no bf16
-   weight cast: the backward casts the weights again).
-12. Prefills recurrentgemma-2b at full width and depth (4 x 4,096
+   weight cast: the backward casts the weights again).  The profiles run
+   after step 12's phases.
+12. Trains recurrentgemma-2b at full width and depth through the
+   multi-host tier (``--hosts 4 --cache-mb``: a 4-host clairvoyant
+   cluster in this process, 4 x 1,024 tokens a step, 32 records, a fleet
+   budget of 16, 3 epochs): first a second cluster without background
+   workers reads every global batch of the 3 epochs, each equal to the
+   store's direct read, and the fleet's storage records equal n +
+   (epochs - 1) x floor; then the launcher: 24 finite losses, the scan
+   launches of step 11, the ``distributed`` block (4 hosts, 16 records of
+   fleet capacity, a floor of 16, records served host-to-host, no peer
+   failure or push error) and a ``drift`` block; prints step times, Eq.
+   1, the peak, the storage records of each epoch beside the floor.
+   Then the TCP route: three processes through ``run_cpu_process_mesh``,
+   each a ``PeerServer`` and a ``TCPTransport``, lockstep epochs (bytes
+   equal to the direct read, records pushed and served, reads at the
+   floor).  Then gradient compression at full width, batch 1 x 1,024:
+   one step's gradients compressed on the card and on the CPU (codes,
+   scales and residuals ``torch.equal``), error feedback's invariant
+   ``decompress + new_residual == grad + residual`` bit for bit on the
+   card, ``compressed_psum`` over a one-rank NCCL group on the embedding's
+   gradient equal to ``dequantize(quantize(x))``, and 4 steps through
+   ``make_train_step(compressor=EFCompressor(8))``: finite losses, the
+   first equal to an uncompressed step's from the same weights and
+   batch, the scan launches, both peaks 5 GiB under the card.
+13. Prefills recurrentgemma-2b at full width and depth (4 x 4,096
    tokens, through ``make_prefill_step``) and decodes 64 greedy steps
    past it (``make_decode_step``: RG-LRU state caches, 2,048-slot
    local-attention rings that wrap at once, scalar position): checks 18
@@ -126,7 +150,7 @@
    width and 4 of 40 layers: prefill -> ``extend_cache`` -> 8
    scalar-position decode steps against prefill at 3e-2; and
    ``blocked_attention`` at granite's 4,096-token context against K4.
-13. Serves qwen2-moe-a2.7b at full width and depth (24 ``moe`` layers,
+14. Serves qwen2-moe-a2.7b at full width and depth (24 ``moe`` layers,
    60 routed experts top-4 and 4 shared; 14,315,587,584 parameters in
    f32) through the serving launcher with step 5's checks; profiles its
    steady decode (device time by operation: dispatch and combine, the
@@ -147,7 +171,7 @@
    profiles its steady decode (casts, GEMMs, ``flash_decode``); and
    checks its prefill against teacher-forced decode at full depth in f32
    (1e-3, K4 and K6 on their f32 kernels at D 160) and bf16 (5e-2).
-14. xlstm-1.3b (48 layers: 42 ``mlstm``, 6 ``slstm``; 2,047,318,352
+15. xlstm-1.3b (48 layers: 42 ``mlstm``, 6 ``slstm``; 2,047,318,352
    parameters), which launches no kernel: first the sLSTM alone at (1,
    4,096, 2,048), forward and backward timed with CUDA events, its
    launches a time step from profiles at two lengths; every xLSTM path at
@@ -162,7 +186,7 @@
    teacher-forced decode against prefill at 48 layers (bf16 within twice
    the bf16 prefill's distance from f32, f32 printed) and on one layer of
    each kind at full width (f32, 1e-3).
-15. whisper-tiny at published width and depth (4 ``enc_attn`` + 4
+16. whisper-tiny at published width and depth (4 ``enc_attn`` + 4
    ``dec_attn`` layers, d_model 384, 6 heads of 64, 56,355,840
    parameters; random frames, the conv frontend a stub as in the JAX
    package): 8 training steps through ``make_train_step`` (B 8, 1,500
@@ -174,13 +198,13 @@
    peak memory and a profile of 5 decode steps; then prefill(320) ->
    ``extend_cache`` -> 64 teacher-forced steps against prefill(384), f32
    (1e-3) and bf16 (5e-2).
-16. qwen2-vl-72b at full width and 8 of 80 layers (9,512,820,736
+17. qwen2-vl-72b at full width and 8 of 80 layers (9,512,820,736
    parameters): a 64-token prompt with a 6 x 8 image block, its M-RoPE
    positions as Qwen2-VL lays them out; prefill against 64 teacher-forced
    decode steps each with its (1, 3, 1) positions, f32 (1e-3) and bf16
    (5e-2), K4 and K6 at group 8, D 128; the default positions must move
    the logits by more than each tolerance; the peak 5 GiB under the card.
-17. Prints ``{"kernels": [...]}``, then ``{"ok": true, "device": ...}`` as
+18. Prints ``{"kernels": [...]}``, then ``{"ok": true, "device": ...}`` as
    the last line.  Any failed check exits non-zero before those lines.
 """
 from __future__ import annotations
@@ -236,6 +260,25 @@ TRAIN_TIER_ARGS = ["--arch", "recurrentgemma-2b", "--seq-len", "4096", "--batch"
                    "--num-records", "16", "--epochs", "2", "--steps", "0", "--seed", "0",
                    "--cache-mb", str(8 * 16388 / 2**20), "--prefetch-lookahead", "4",
                    "--eviction-policy", "belady", "--drift-device", "optane", "--device", "cuda"]
+# the multi-host tier: recurrentgemma-2b trained through a 4-host
+# clairvoyant cluster in this process (``--hosts 4``).  Batch 4 x 1,024 so
+# that each host owns one row of every global batch (a step still takes
+# 4,096 tokens); 32 records of 1,025 int32 (4,100 bytes), a fleet budget of
+# half of them (16, 4 a host), 3 epochs of 8 steps, a 2-batch lookahead
+MULTIHOST_HOSTS, MULTIHOST_RECORDS, MULTIHOST_SEQ, MULTIHOST_BATCH = 4, 32, 1024, 4
+MULTIHOST_EPOCHS, MULTIHOST_CACHED = 3, 16
+MULTIHOST_ARGS = ["--arch", "recurrentgemma-2b", "--seq-len", str(MULTIHOST_SEQ),
+                  "--batch", str(MULTIHOST_BATCH), "--num-records", str(MULTIHOST_RECORDS),
+                  "--epochs", str(MULTIHOST_EPOCHS), "--steps", "0", "--seed", "0",
+                  "--hosts", str(MULTIHOST_HOSTS),
+                  "--cache-mb", str(MULTIHOST_CACHED * (MULTIHOST_SEQ + 1) * 4 / 2**20),
+                  "--eviction-policy", "belady", "--prefetch-lookahead", "2", "--device", "cuda"]
+# the TCP route: 3 host processes, each a PeerServer and a TCPTransport, over
+# 256 records of 64 bytes (batches of 32), a quarter of them cached a host
+TCP_HOSTS, TCP_RECORDS, TCP_BATCH, TCP_RECORD, TCP_EPOCHS = 3, 256, 32, 64, 3
+# gradient compression at recurrentgemma-2b's full width: batch 1 x 1,024,
+# COMPRESSION_STEPS steps through make_train_step(compressor=EFCompressor(8))
+COMPRESSION_SEQ, COMPRESSION_STEPS = 1024, 4
 # the path's first; then ragged, T = 1, a long ragged T (128 ring tiles and
 # one step), a W no multiple of the 32-channel strip, and W % 4 != 0
 SCAN_SHAPES = ((1, 4096, 2560), (3, 1000, 2560 + 96), (2, 1, 2560), (1, 16385, 2560),
@@ -1747,6 +1790,372 @@ def train_tier_phase(dev):
     _check_scan_launches(launches, dict(ops.ENTRY_LAUNCHES), steps, rg)
     check("cache" in summary and "drift" in summary, "the summary lacks its cache or drift block")
     check(summary["drift"]["ok"], "the drift report disagrees with the closed forms")
+    return launches
+
+
+def multihost_lockstep_check(path, args):
+    """A second 4-host cluster over the launcher's corpus and shuffler,
+    without the background workers (``background=False``): every global
+    batch of the run's epochs through ``ClusterFetcher`` equal to the
+    store's direct read, and the fleet's storage reads exactly ``n +
+    (epochs - 1) * floor``."""
+    import numpy as np
+
+    from repro_torch.launch.args import make_shuffler_from_args, planner_from_args
+    from repro_torch.prefetch.distributed import ClusterFetcher, make_cluster
+    from repro_torch.storage.record_store import RecordStore
+
+    ref = RecordStore(path)
+    shuffler = make_shuffler_from_args(args, ref, args.batch, args.seed)
+    cluster = make_cluster(lambda: RecordStore(path), shuffler, args.hosts,
+                           budget_bytes=int(args.cache_mb * 2**20),
+                           lookahead=args.prefetch_lookahead, workers=args.io_workers,
+                           background=False, max_epochs=args.epochs,
+                           policy=args.eviction_policy, planner=planner_from_args(args))
+    fetcher = ClusterFetcher(cluster)
+    t0 = time.perf_counter()
+    try:
+        batches, per_epoch, prev = 0, [], 0
+        for e in range(args.epochs):
+            for idx in fetcher.batch_iter(e):
+                check(np.array_equal(fetcher(idx), ref.read_batch_into(idx)),
+                      f"lockstep cluster batch {batches} differs from the direct read")
+                batches += 1
+            total = cluster.aggregate_io()["storage_records"]
+            per_epoch.append(total - prev)
+            prev = total
+        agg = cluster.aggregate_io()
+        floor = cluster.placement.expected_storage_reads()
+    finally:
+        fetcher.close()
+        ref.close()
+    n = args.num_records
+    print(f"  lockstep cluster ({args.hosts} hosts, background off): {batches} global batches "
+          f"equal to the direct read in {time.perf_counter() - t0:.2f} s; storage records by "
+          f"epoch {per_epoch} (floor {floor}); remote hits {agg['remote_hits']}, pushes "
+          f"{agg['peer_pushes']}")
+    check(batches == args.epochs * n // args.batch, f"{batches} lockstep batches")
+    check(agg["storage_records"] == n + (args.epochs - 1) * floor,
+          f"lockstep storage records {agg['storage_records']}, want "
+          f"{n + (args.epochs - 1) * floor}")
+    check(agg["peer_failures"] == agg["push_errors"] == 0, f"lockstep peer errors {agg}")
+
+
+def multihost_train_phase(dev):
+    """LM training at full width through the multi-host tier: the launcher
+    with ``--hosts 4 --cache-mb`` (a 4-host clairvoyant cluster in this
+    process, compute on the card), after a lockstep byte check of the same
+    cluster over the same corpus.  Counts its own launches from 0 and
+    returns them."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import make_token_dataset
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    _free()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = get_config("recurrentgemma-2b")
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="multihost_", dir=os.path.join(ROOT, "build"))
+    try:
+        path = make_token_dataset(os.path.join(tmp, "corpus.rrec"), MULTIHOST_RECORDS,
+                                  MULTIHOST_SEQ, cfg.vocab_size, seed=0).path
+        argv = MULTIHOST_ARGS + ["--data", path]
+        print("training recurrentgemma-2b at full width through the multi-host tier:",
+              " ".join(MULTIHOST_ARGS))
+        multihost_lockstep_check(path, train.build_argparser().parse_args(argv))
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        summary = train.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        entries = dict(ops.ENTRY_LAUNCHES)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rg = sum(p.count("rglru") * r for p, r in cfg.stages)
+    steps, secs = summary["steps"], summary["step_seconds"]
+    dist = summary.get("distributed", {})
+    card_gib = torch.cuda.get_device_properties(dev).total_memory / 2**30
+    floor = dist.get("expected_steady_storage_records_per_epoch")
+    print(f"  run incl. init and data {wall:.1f} s; launches {launches}")
+    print(f"  losses {summary['losses']}")
+    print(f"  step seconds {[round(x, 4) for x in secs]}; median of steps 2-{steps} "
+          f"{statistics.median(secs[1:]):.4f} s ({MULTIHOST_SEQ * MULTIHOST_BATCH / statistics.median(secs[1:]):.0f} "
+          f"tokens/s); peak memory {summary['peak_memory_gib']:.2f} GiB of {card_gib:.2f}")
+    print(f"  Eq. 1: t_load {summary['t_load']:.4f} s, t_comp {summary['t_comp']:.4f} s, t_overlap "
+          f"{summary['t_overlap']:.4f} s, t_unhidden_load {summary['t_unhidden_load']:.4f} s, "
+          f"effective {summary['effective_time']:.4f} s")
+    print(f"  storage records by epoch {summary.get('storage_records_by_epoch')}; steady floor "
+          f"{floor} an epoch")
+    print(f"  distributed {json.dumps(dist)}")
+    print(f"  drift {json.dumps(summary.get('drift'))}")
+    epochs = MULTIHOST_EPOCHS
+    check(steps == epochs * MULTIHOST_RECORDS // MULTIHOST_BATCH, f"{steps} steps, want 24")
+    check(len(summary["losses"]) == steps and all(np.isfinite(summary["losses"])),
+          f"losses {summary['losses']}")
+    _check_scan_launches(launches, entries, steps, rg)
+    check(dist.get("hosts") == MULTIHOST_HOSTS, f"distributed hosts {dist.get('hosts')}")
+    check(dist.get("fleet_capacity_records") == MULTIHOST_CACHED,
+          f"fleet capacity {dist.get('fleet_capacity_records')} records, want {MULTIHOST_CACHED}")
+    check(floor == MULTIHOST_RECORDS - MULTIHOST_CACHED, f"steady floor {floor}")
+    check(dist["remote_hits"] > 0, "no record was served host-to-host")
+    check(dist["peer_failures"] == 0 and dist["push_errors"] == 0,
+          f"peer failures {dist['peer_failures']}, push errors {dist['push_errors']}")
+    check("drift" in summary, "the summary lacks its drift block")
+    check(summary["peak_memory_gib"] < card_gib - 5, "the peak is within 5 GiB of the card")
+    return launches
+
+
+def tcp_mesh_host(spec, path, budget_bytes, epochs, out_path):
+    """One host process of the TCP mesh: a PeerServer over its cache, a
+    TCPTransport to the peers found through all_gather, lockstep epochs,
+    every served shard checked against the direct read; host 0 writes
+    the fleet's counters to ``out_path``."""
+    import numpy as np
+
+    from repro_torch.core import LIRSShuffler
+    from repro_torch.prefetch.cache import TieredCache
+    from repro_torch.prefetch.distributed import RemoteFetcher, RemoteTier
+    from repro_torch.prefetch.fetcher import PrefetchingFetcher
+    from repro_torch.prefetch.transport import PeerServer, TCPTransport
+    from repro_torch.sharding.placement import ClairvoyantPlacement, HostShardView
+    from repro_torch.storage.record_store import RecordStore
+
+    sh = LIRSShuffler(TCP_RECORDS, TCP_BATCH, seed=5)
+    store, ref = RecordStore(path), RecordStore(path)
+    cache = TieredCache(store.lengths(), budget_bytes, policy="belady")
+    server = PeerServer(cache)
+    addrs = spec.all_gather(server.address)
+    transport = TCPTransport({h: a for h, a in addrs.items() if h != spec.host_id})
+    placement = ClairvoyantPlacement(sh, spec.num_hosts, [cache.capacity] * spec.num_hosts,
+                                     policy="belady", max_epochs=epochs)
+    remote = RemoteTier(spec.host_id, placement, RemoteFetcher(transport, spec.host_id))
+    fetcher = PrefetchingFetcher(store, HostShardView(sh, spec.num_hosts, spec.host_id),
+                                 lookahead=2, gap_bytes=0, workers=1, background=False,
+                                 max_epochs=epochs, cache=cache, policy="belady",
+                                 remote=remote, placement=placement)
+    server.inbox = fetcher._inbox_put
+    spec.all_gather(None)  # every host takes pushes before any serves
+    equal = True
+    for e in range(epochs):
+        for part in fetcher.batch_iter(e):
+            equal &= bool(np.array_equal(fetcher(part), ref.read_batch_into(part)))
+            spec.all_gather(None)  # lockstep: peers stay populated
+    stats = spec.all_gather({"equal": equal, "remote_hits": store.stats.remote_hits,
+                             "pushed": fetcher.pushed_records, "push_errors": fetcher.push_errors,
+                             "peer_failures": remote.fetcher.peer_failures,
+                             "storage_records": store.stats.batch_records,
+                             "floor": placement.expected_storage_reads()})
+    fetcher.close()
+    server.close()
+    transport.close()
+    ref.close()
+    store.close()
+    if spec.host_id == 0:
+        with open(out_path, "w") as f:
+            json.dump(stats, f)
+
+
+def tcp_mesh_phase():
+    """The TCP route on the chip's host: three OS processes through
+    ``run_cpu_process_mesh``, each a PeerServer and a TCPTransport, lockstep
+    epochs over a fixed-record file; byte identity, no peer failure or push
+    error, records pushed and served host-to-host, and storage reads
+    exactly at the floor."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.launch.mesh import run_cpu_process_mesh
+    from repro_torch.storage.record_store import RecordWriter
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="tcp_mesh_", dir=os.path.join(ROOT, "build"))
+    try:
+        path = os.path.join(tmp, "fixed.rrec")
+        rng = np.random.default_rng(11)
+        with RecordWriter(path, record_size=TCP_RECORD) as w:
+            for _ in range(TCP_RECORDS):
+                w.append(rng.bytes(TCP_RECORD))
+        out = os.path.join(tmp, "stats.json")
+        t0 = time.perf_counter()
+        run_cpu_process_mesh(tcp_mesh_host, TCP_HOSTS,
+                             args=(path, TCP_RECORDS * TCP_RECORD // 4, TCP_EPOCHS, out),
+                             mp_context="spawn", round_timeout_s=120.0, join_timeout_s=120.0)
+        wall = time.perf_counter() - t0
+        with open(out) as f:
+            stats = list(json.load(f).values())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    total = {k: sum(v[k] for v in stats) for k in ("remote_hits", "pushed", "push_errors",
+                                                   "peer_failures", "storage_records")}
+    floor = stats[0]["floor"]
+    want = TCP_RECORDS + (TCP_EPOCHS - 1) * floor
+    print(f"TCP mesh: {TCP_HOSTS} processes, {TCP_EPOCHS} lockstep epochs in {wall:.2f} s "
+          f"(process start included); {json.dumps(total)}; floor {floor} an epoch")
+    check(all(v["equal"] for v in stats), "a TCP mesh host served bytes unequal to the direct read")
+    check(total["peer_failures"] == 0 and total["push_errors"] == 0, f"TCP mesh errors {total}")
+    check(total["pushed"] > 0 and total["remote_hits"] > 0, f"TCP mesh served nothing: {total}")
+    check(total["storage_records"] == want,
+          f"TCP mesh storage records {total['storage_records']}, want {want}")
+
+
+def compression_phase(dev):
+    """Gradient compression at recurrentgemma-2b's full width: one step's
+    gradients compressed on the card and, leaf by leaf, on the CPU (codes,
+    scales and residuals equal), error feedback's invariant bit for bit on
+    the card, COMPRESSION_STEPS compressed train steps (finite losses, the
+    first equal to an uncompressed step's from the same weights and batch,
+    the scan's launches), and ``compressed_psum`` over a one-rank NCCL
+    group on the embedding.  Returns the compressed steps' launches."""
+    import socket
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.train.compression import (
+        EFCompressor,
+        compressed_psum,
+        dequantize,
+        quantize,
+    )
+    from repro_torch.train.optimizer import AdamW, AdamWConfig
+    from repro_torch.train.steps import init_train_state, make_train_step
+    from repro_torch.utils.tree import tree_leaves, tree_unflatten
+
+    _free()
+    torch.cuda.reset_peak_memory_stats(dev)
+    card_gib = torch.cuda.get_device_properties(dev).total_memory / 2**30
+    cfg = get_config("recurrentgemma-2b")
+    comp = EFCompressor(8)
+    opt = AdamW(AdamWConfig(lr=1e-3, warmup_steps=10))
+    state = init_train_state(cfg, torch.Generator(dev).manual_seed(0), opt, dev, compressor=comp)
+    params = state["params"]
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    gen = torch.Generator(dev).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (1, COMPRESSION_SEQ + 1), generator=gen, device=dev)
+    batch = {"tokens": toks[:, :-1].to(torch.int32), "labels": toks[:, 1:].to(torch.int32)}
+    print(f"compression at full width: {cfg.name}, {n_params:,} parameters, batch 1 x "
+          f"{COMPRESSION_SEQ}; the f32 residual {4 * n_params / 2**30:.2f} GiB")
+
+    # 1-2: one step's gradients, compressed on the card and on the CPU
+    leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+    loss, _ = M.loss_fn(cfg, tree_unflatten(params, leaves), batch)
+    grads = torch.autograd.grad(loss, leaves)
+    del leaves, loss
+    t0 = time.perf_counter()
+    worst_gap, card_s, cpu_s = 0.0, 0.0, 0.0
+    for i, (g, r) in enumerate(zip(grads, tree_leaves(state["ef_residual"]))):
+        for rnd in (1, 2):  # round 2 feeds back round 1's residual, on the card only
+            t1 = time.perf_counter()
+            (codes, scales), (nr,) = comp.compress([g], [r])
+            (sent,) = comp.decompress((codes, scales))
+            torch.cuda.synchronize()
+            card_s += time.perf_counter() - t1
+            if rnd == 1:  # the step's own round: the state's zero residual
+                t2 = time.perf_counter()
+                (ccodes, cscales), (cnr,) = comp.compress([g.cpu()], [r.cpu()])
+                cpu_s += time.perf_counter() - t2
+                same = (torch.equal(codes[0].cpu(), ccodes[0]),
+                        torch.equal(scales[0].cpu(), cscales[0]), torch.equal(nr.cpu(), cnr))
+                check(all(same), f"leaf {i} {tuple(g.shape)} compressed on the card differs "
+                      f"from the CPU's (codes, scale, residual equal: {same}; scale "
+                      f"{float(scales[0])!r} vs {float(cscales[0])!r})")
+                del ccodes, cscales, cnr
+            e = g.float() + r
+            check(torch.equal(sent + nr, e),
+                  f"round {rnd}: leaf {i}: decompress + new residual != grad + residual")
+            worst_gap = max(worst_gap, float((sent - e).abs_().max() / scales[0]))
+            r = nr
+            del codes, scales, sent, e
+        del r, nr
+    print(f"  {len(grads)} leaves: codes, scales and residuals equal on card and CPU; "
+          f"decompress + residual == grad + residual bit for bit on the card, from the zero "
+          f"residual and again from the first round's; the sent gradient within "
+          f"{worst_gap:.4f} scale units of grad + residual; compress card {card_s:.2f} s (both "
+          f"rounds), CPU {cpu_s:.2f} s, checks {time.perf_counter() - t0:.1f} s (host clock)")
+    check(worst_gap <= 0.5001, f"a residual of {worst_gap} scale units, above half a unit")
+    embed = max(grads, key=lambda g: g.numel())
+
+    # 4: compressed_psum through a one-rank NCCL group, on the embedding's gradient
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0)
+    try:
+        out = compressed_psum(embed, bits=8)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        compressed_psum(embed, bits=8)
+        torch.cuda.synchronize()
+        psum_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        dist.destroy_process_group()
+    check(torch.equal(out, dequantize(*quantize(embed, 8))),
+          "compressed_psum over one rank is not dequantize(quantize(x))")
+    print(f"  compressed_psum over a one-rank NCCL group on the {tuple(embed.shape)} gradient: "
+          f"equal to dequantize(quantize(x)); {psum_ms:.2f} ms (host clock)")
+    del grads, embed, out
+    _free()
+
+    checks_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    check(checks_peak < card_gib - 5, "the checks' peak is within 5 GiB of the card")
+
+    # 3: the uncompressed step, then the compressed steps from the same weights
+    torch.cuda.reset_peak_memory_stats(dev)
+    backup = [p.detach().to("cpu", copy=True) for p in tree_leaves(params)]
+    plain = make_train_step(cfg, opt)
+    plain_losses, plain_secs = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        _, out = plain(state, batch)
+        plain_losses.append(out["loss"].clone())
+        torch.cuda.synchronize()
+        plain_secs.append(time.perf_counter() - t0)
+    for p, b in zip(tree_leaves(params), backup):
+        p.copy_(b)
+    for key in ("mu", "nu"):
+        for m in tree_leaves(state["opt"][key]):
+            m.zero_()
+    state["opt"]["count"].zero_()
+    state["step"].zero_()
+    del backup
+    step = make_train_step(cfg, opt, compressor=comp)
+    ops.reset_launch_counts()
+    losses, secs = [], []
+    for _ in range(COMPRESSION_STEPS):
+        t0 = time.perf_counter()
+        _, out = step(state, batch)
+        losses.append(out["loss"].clone())
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    launches, entries = dict(ops.LAUNCHES), dict(ops.ENTRY_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    rg = sum(p.count("rglru") * r for p, r in cfg.stages)
+    vals = [float(x) for x in losses]
+    print(f"  {COMPRESSION_STEPS} compressed steps: losses {vals}; step seconds "
+          f"{[round(x, 4) for x in secs]}; uncompressed step seconds "
+          f"{[round(x, 4) for x in plain_secs]} (losses {[float(x) for x in plain_losses]}); "
+          f"peak memory {peak:.2f} GiB of {card_gib:.2f} (the checks before them "
+          f"{checks_peak:.2f}); launches {launches}")
+    check(all(np.isfinite(vals)), f"compressed losses {vals}")
+    check(torch.equal(losses[0], plain_losses[0]),
+          f"the first compressed loss {vals[0]} != the uncompressed step's {float(plain_losses[0])}")
+    check(int(state["step"]) == COMPRESSION_STEPS, f"step count {int(state['step'])}")
+    _check_scan_launches(launches, entries, COMPRESSION_STEPS, rg)
+    check(peak < card_gib - 5, "the peak is within 5 GiB of the card")
+    del state, params, step, plain
+    _free()
     return launches
 
 
@@ -3352,6 +3761,15 @@ def main() -> int:
     t0 = time.perf_counter()
     train_tier_phase(dev)
     print(f"tiered training phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    multihost_launches = multihost_train_phase(dev)
+    print(f"multi-host training phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    tcp_mesh_phase()
+    print(f"TCP mesh phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    compression_launches = compression_phase(dev)
+    print(f"compression phase {time.perf_counter() - t0:.1f} s")
     train_profile_phase(dev)
     t0 = time.perf_counter()
     rg_launches = recurrent_decode_phase(dev)
@@ -3394,11 +3812,14 @@ def main() -> int:
             row["whisper"] = dict(whisper_kernels[row["name"]],
                                   serve_launches=whisper_launches[row["name"]])
     for name in ("rglru_scan", "rglru_scan_bwd"):
-        rows.append(dict(scans[name], launches=train_launches[name]))
+        rows.append(dict(scans[name], launches=train_launches[name],
+                         multihost_train_launches=multihost_launches[name],
+                         compression_launches=compression_launches[name]))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "context_4096", "head_dim_160",
             "head_dim_256", "qwen2_moe_serve_launches", "whisper", "b1_ms",
-            "device_ids_ms", "device_ids_bound_ms", "bandwidth_ms")
+            "device_ids_ms", "device_ids_bound_ms", "bandwidth_ms", "multihost_train_launches",
+            "compression_launches")
     print(json.dumps({"kernels": [{k: row[k] for k in keys if k in row} for row in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

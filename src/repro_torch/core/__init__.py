@@ -3,7 +3,7 @@
 - location:   Data-Format-Aware Location Generator (offset tables)
 - assignment: random assignment tables (explicit + O(1) Feistel)
 - shuffler:   LIRS (instance / page-aware) + BMF + TFIP baselines
-- readpath:   ReadPathConfig / build_data_plane (direct paths only)
+- readpath:   ReadPathConfig / build_data_plane (direct and tiered paths)
 - pipeline:   prefetching input pipeline with Eq.1 time accounting
 """
 from repro_torch.core.assignment import FeistelAssignment, TableAssignment  # noqa: F401

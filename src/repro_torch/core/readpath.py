@@ -17,8 +17,6 @@ closure for the direct paths, or a
 callable) for the tiered path, with ``plane.batch_iter``, ``plane.cache``
 and ``plane.close()``.  :func:`batch_iter_fn_of` and
 :func:`close_data_plane` paper over the difference for generic callers.
-The tier is single-host: a config with ``remote`` or ``placement`` (the
-JAX package's cross-host tier) raises.
 """
 from __future__ import annotations
 
@@ -58,9 +56,8 @@ class ReadPathConfig:
     * ``eviction_policy`` (``lru`` | ``belady``) and
       ``prefetch_planner`` (None = auto: on for belady) — retention and
       admission of the tier.
-    * ``remote`` / ``placement`` — the cross-host tier of the JAX
-      package (``repro.prefetch.distributed``); not ported, and refused
-      by :func:`build_data_plane`.
+    * ``remote`` / ``placement`` — the cross-host tier
+      (:mod:`repro_torch.prefetch.distributed`).
     """
 
     mode: str = "auto"
@@ -127,9 +124,10 @@ def build_data_plane(
     the tier on or off, for every policy and planner setting; pass the
     returned fetcher's ``batch_iter`` as the pipeline's
     ``batch_iter_fn`` so the lookahead window re-syncs at epoch
-    boundaries.  ``remote`` / ``placement`` (the cross-host tier) are
-    not ported and raise ``NotImplementedError`` rather than being
-    ignored.
+    boundaries.  ``remote`` / ``placement`` extend the tier across hosts
+    — most multi-host callers should use
+    :func:`repro_torch.prefetch.distributed.make_cluster` instead, which
+    builds one plane per host from a shared placement.
 
     Pair with ``InputPipeline(recycle_fn=ring.recycle)`` for the
     allocation-free steady state; both ring classes ignore foreign
@@ -137,12 +135,6 @@ def build_data_plane(
     batches.
     """
     cfg = (config or ReadPathConfig()).validate()
-    if cfg.remote is not None or cfg.placement is not None:
-        raise NotImplementedError(
-            "remote= / placement= select the multi-host tier (peer fetches "
-            "over a shared placement), a later slice of the port; the "
-            "port's tier is single-host"
-        )
     if cfg.tiered:
         from repro_torch.prefetch.fetcher import PrefetchingFetcher
 
@@ -159,6 +151,8 @@ def build_data_plane(
             max_epochs=cfg.max_epochs,
             policy=cfg.eviction_policy,
             planner=cfg.prefetch_planner,
+            remote=cfg.remote,
+            placement=cfg.placement,
         )
     mode = cfg.mode
     if mode == "auto":

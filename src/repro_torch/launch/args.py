@@ -7,7 +7,8 @@ read path: :func:`add_read_path_args` declares the flags once,
 :func:`config_from_args` round-trips them into a ``ReadPathConfig``,
 and :func:`make_shuffler_from_args` builds the shuffle strategy the
 tier's clairvoyance rides on.  The launchers take the same flags as the
-JAX ones; the tier is single-host (``--hosts 1``).
+JAX ones; the training launcher's ``--hosts N`` spreads the tier over an
+in-process cluster (:mod:`repro_torch.prefetch.distributed`).
 """
 from __future__ import annotations
 

@@ -13,16 +13,27 @@ report.
         --epochs 2 --cache-mb 0.001 --prefetch-lookahead 4 \\
         --eviction-policy belady --drift-device optane
 
+    PYTHONPATH=src python -m repro_torch.launch.train --arch recurrentgemma-2b \\
+        --smoke --device cpu --num-records 32 --seq-len 32 --batch 4 \\
+        --epochs 3 --hosts 4 --cache-mb 0.00201416015625 --prefetch-lookahead 2
+
 The flags and summary are those of ``repro.launch.train``, plus
 ``--device`` (``cuda`` by default; asking for CUDA without one raises).
 The summary adds the device, each step's loss and host-clock seconds
-(ending in the sync that reads the loss) and the device's peak memory.
+(ending in the sync that reads the loss), the device's peak memory and,
+through a tier, the storage records each completed epoch read
+(``storage_records_by_epoch``).
 ``--cache-mb > 0`` reads through the tiered DRAM path (clairvoyant
 prefetch along the shuffler's index stream; batch bytes unchanged) and
 adds the summary's ``cache`` block, and, over two or more epochs, the
 ``drift`` block (``--drift-device`` also prices the reads through a
-Table 2 device model).  The multi-host cluster (``--hosts > 1``) is not
-ported yet and is refused, so the summary has no ``distributed``.  A
+Table 2 device model).  ``--hosts N`` with ``--cache-mb > 0`` runs the
+data plane as an N-host clairvoyant cluster in this process
+(:func:`repro_torch.prefetch.distributed.make_cluster`, the budget split
+evenly): each host serves its slice of every global batch, peers before
+storage, and the summary's ``distributed`` block replaces ``cache``.
+Compute stays on the one device.  ``--hosts > 1`` without ``--cache-mb``
+raises ``ValueError`` (the JAX launcher quietly runs one host).  A
 config with an encoder (whisper-tiny) fails at its first step with an
 error naming ``encoder_frames``, which the record batches do not carry
 (the JAX launcher fails there too).
@@ -44,6 +55,7 @@ from repro_torch.launch.args import (
     add_read_path_args,
     config_from_args,
     make_shuffler_from_args,
+    planner_from_args,
 )
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
@@ -72,7 +84,14 @@ def build_argparser():
     ap.add_argument("--io-producers", type=int, default=1,
                     help="pipeline producer threads (ordered reassembly)")
     ap.add_argument("--hosts", type=int, default=1,
-                    help="N-host clairvoyant data plane (not ported yet: 1 only)")
+                    help="run the data plane as an N-host clairvoyant "
+                         "cluster (repro_torch.prefetch.distributed): each "
+                         "host owns a slice of every global batch, caches "
+                         "what it consumes, and serves peers host-to-host "
+                         "before storage.  Batches stay byte-identical to "
+                         "--hosts 1; compute is unchanged (single device). "
+                         "Needs --cache-mb > 0 (with --hosts > 1 the "
+                         "budget is the FLEET budget, split evenly)")
     ap.add_argument("--chaos", default="",
                     help="fault-injection spec for the read path, e.g. "
                          "'seed=1,transient=0.05,stall=0.01,stall_s=0.2' "
@@ -99,18 +118,19 @@ def build_argparser():
     return ap
 
 
-def _refuse_unported(args) -> None:
-    if args.hosts > 1:
-        raise NotImplementedError(
-            "--hosts > 1 needs the multi-host tiered read path (peer "
-            "fetches over a shared placement), a later slice of the port; "
-            "run with --hosts 1"
+def _check_hosts(args) -> None:
+    if args.hosts < 1:
+        raise ValueError("--hosts must be >= 1")
+    if args.hosts > 1 and args.cache_mb <= 0:
+        raise ValueError(
+            "--hosts > 1 runs the multi-host tier, which needs --cache-mb > 0 "
+            "(the fleet's DRAM budget)"
         )
 
 
 def main(argv=None):
     args = build_argparser().parse_args(argv)
-    _refuse_unported(args)
+    _check_hosts(args)
     device = resolve_device(args.device)
     if args.trace:
         obs_trace.enable()
@@ -132,7 +152,7 @@ def main(argv=None):
         ).path
     store = RecordStore(path, fault_injector=injector, verify=args.verify_checksums)
     try:
-        summary = _train(args, cfg, device, store, injector, registry)
+        summary = _train(args, cfg, device, path, store, injector, registry)
     finally:
         store.close()
         if tmp is not None:
@@ -141,12 +161,34 @@ def main(argv=None):
     return summary
 
 
-def _train(args, cfg, device, store, injector, registry):
+def _train(args, cfg, device, path, store, injector, registry):
     seq = args.seq_len
     shuffler = make_shuffler_from_args(args, store, args.batch, args.seed)
     fetcher = None
+    cluster = None
     batch_iter_fn = None
-    if args.cache_mb > 0:
+    if args.cache_mb > 0 and args.hosts > 1:
+        # distributed clairvoyant data plane: H in-process hosts, each
+        # with its own store handle, shard view and cache; misses route
+        # to the predicted holding peer before storage.  Compute stays on
+        # this device: only the I/O plane is multi-host
+        from repro_torch.prefetch.distributed import ClusterFetcher, make_cluster
+
+        cluster = make_cluster(
+            lambda: RecordStore(path, fault_injector=injector, verify=args.verify_checksums),
+            shuffler,
+            args.hosts,
+            budget_bytes=int(args.cache_mb * 2**20),
+            lookahead=args.prefetch_lookahead,
+            workers=args.io_workers,
+            background=True,
+            max_epochs=args.epochs,
+            policy=args.eviction_policy,
+            planner=planner_from_args(args),
+        )
+        fetcher = ClusterFetcher(cluster)
+        batch_iter_fn = fetcher.batch_iter
+    elif args.cache_mb > 0:
         # tiered read path: DRAM cache + clairvoyant prefetch along the
         # shuffler's known index stream (batch bytes unchanged).
         # max_epochs stops the lookahead from prefetching past the last
@@ -156,7 +198,7 @@ def _train(args, cfg, device, store, injector, registry):
             config_from_args(args, shuffler=shuffler, max_epochs=args.epochs),
         )
         batch_iter_fn = fetcher.batch_iter
-
+    if fetcher is not None:
         if store.variable:
             def fetch(idx):
                 return decode_token_batch(fetcher(idx).tolist(), seq)
@@ -180,7 +222,9 @@ def _train(args, cfg, device, store, injector, registry):
     epoch_snaps: list = []
 
     def epoch_hook(epoch):
-        epoch_snaps.append(store.stats.snapshot())
+        epoch_snaps.append(
+            cluster.aggregate_io() if cluster is not None else store.stats.snapshot()
+        )
 
     try:
         trainer = Trainer(
@@ -199,7 +243,9 @@ def _train(args, cfg, device, store, injector, registry):
         )
         obs_metrics.bind_store(registry, store)
         obs_metrics.bind_pipeline(registry, trainer.pipeline)
-        if fetcher is not None:
+        if cluster is not None:
+            obs_metrics.bind_cluster(registry, cluster)
+        elif fetcher is not None:
             obs_metrics.bind_fetcher(registry, fetcher)
         if injector is not None:
             obs_metrics.bind_fault_log(registry, injector.log)
@@ -211,7 +257,17 @@ def _train(args, cfg, device, store, injector, registry):
     finally:
         if fetcher is not None:
             fetcher.close()
-    if fetcher is not None:
+    if cluster is not None:
+        summary["distributed"] = {
+            "hosts": cluster.num_hosts,
+            "policy": args.eviction_policy,
+            "fleet_capacity_records": cluster.placement.aggregate_capacity(),
+            "expected_steady_storage_records_per_epoch": (
+                cluster.placement.expected_storage_reads()
+            ),
+            **cluster.aggregate_io(),
+        }
+    elif fetcher is not None:
         summary["cache"] = _cache_block(fetcher)
     st = store.stats
     summary["io_resilience"] = {
@@ -227,8 +283,17 @@ def _train(args, cfg, device, store, injector, registry):
     # model-vs-measured drift over the steady (warm) epochs: the cold
     # first epoch is all misses by construction, so it only anchors the
     # delta window
+    if fetcher is not None:
+        key = "storage_records" if cluster is not None else "batch_records"
+        ends = [snap[key] for snap in epoch_snaps]
+        summary["storage_records_by_epoch"] = [b - a for a, b in zip([0] + ends, ends)]
     if len(epoch_snaps) >= 2 and fetcher is not None:
-        summary["drift"] = _drift_report(args, store, fetcher, epoch_snaps).to_dict()
+        report = (
+            _distributed_drift_report(args, store, cluster, epoch_snaps)
+            if cluster is not None
+            else _drift_report(args, store, fetcher, epoch_snaps)
+        )
+        summary["drift"] = report.to_dict()
     summary["device"] = str(device)
     summary["losses"] = [h["loss"] for h in trainer.history]
     summary["step_seconds"] = trainer.step_seconds
@@ -291,6 +356,26 @@ def _drift_report(args, store, fetcher, epoch_snaps):
         storage_ios=d["batch_ios"],
         storage_bytes=d["bytes_read"],
         device=args.drift_device or None,
+    )
+
+
+def _distributed_drift_report(args, store, cluster, epoch_snaps):
+    """The fleet's drift report over the epochs after the first."""
+    from repro_torch.obs import drift
+
+    n = store.num_records
+    first, last = epoch_snaps[0], epoch_snaps[-1]
+    d = {k: last[k] - first[k] for k in last}
+    return drift.distributed_report(
+        n_records=n,
+        hosts=args.hosts,
+        capacity_frac_global=min(1.0, cluster.placement.aggregate_capacity() / n),
+        policy=args.eviction_policy,
+        window_frac=min(1.0, args.prefetch_lookahead * args.batch / n),
+        epochs=len(epoch_snaps) - 1,
+        remote_hits=d["remote_hits"],
+        storage_records=d["storage_records"],
+        local_hits=d["local_hits"],
     )
 
 

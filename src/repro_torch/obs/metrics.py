@@ -356,7 +356,7 @@ def bind_pipeline(
 def bind_cluster(
     registry: MetricsRegistry, cluster, prefix: str = "cluster"
 ) -> None:
-    """Fleet-wide aggregates from a ``repro.prefetch.distributed``
+    """Fleet-wide aggregates from a ``repro_torch.prefetch.distributed``
     cluster (uses its own ``aggregate_io()`` roll-up)."""
     registry.register_collector(
         prefix,

@@ -1,5 +1,5 @@
 """Clairvoyant prefetch + tiered DRAM cache over the record store (the
-port's copy of ``repro.prefetch``, single host).
+port's copy of ``repro.prefetch``).
 
 LIRS shuffles *indexes*, not data: the entire per-epoch storage access
 sequence is known before the first batch is read.  This package exploits
@@ -20,8 +20,9 @@ numpy and threads on the host, with no device code:
   background worker executes plans through the store's pread pool.
   Batch bytes are identical with prefetch on or off.
 
-The multi-host tier (``repro.prefetch.distributed`` and ``transport``)
-is not in the port yet.
+The multi-host tier is :mod:`repro_torch.prefetch.distributed` (peer
+fetches routed by the shared placement) over
+:mod:`repro_torch.prefetch.transport` (in-process or TCP).
 """
 from repro_torch.prefetch.cache import NEVER, TieredCache, copy_records
 from repro_torch.prefetch.fetcher import PrefetchingFetcher

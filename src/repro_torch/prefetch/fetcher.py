@@ -107,12 +107,11 @@ class PrefetchingFetcher:
             if cache is not None
             else TieredCache(store.lengths(), budget_bytes, policy=policy)
         )
-        # cross-host tier (a RemoteTier of the multi-host tier, not in the
-        # port yet: build_data_plane refuses one): when set, cache misses
-        # whose predicted holder is a peer host are fetched host-to-host
-        # before any storage read — prefetch-side in _execute (overlapped
-        # with compute), demand-side in the serve paths (the fallback when
-        # prefetch lagged)
+        # cross-host tier (repro_torch.prefetch.distributed.RemoteTier):
+        # when set, cache misses whose predicted holder is a peer host are
+        # fetched host-to-host before any storage read — prefetch-side in
+        # _execute (overlapped with compute), demand-side in the serve
+        # paths (the fallback when prefetch lagged)
         self.remote = remote
         self.scheduler = LookaheadScheduler(
             shuffler,

@@ -103,12 +103,11 @@ class LookaheadScheduler:
     ):
         self.shuffler = shuffler
         self.cache = cache
-        # a ClairvoyantPlacement (the multi-host tier's, not in the port
-        # yet: build_data_plane refuses one) or None: when set, every
-        # plan's fetch records are annotated with their predicted holding
-        # peer, so the executor asks a host instead of storage — exact
-        # next-use positions driving *routing*, the same closed form that
-        # drives eviction
+        # ClairvoyantPlacement (repro_torch.sharding.placement) or None:
+        # when set, every plan's fetch records are annotated with their
+        # predicted holding peer, so the executor asks a host instead of
+        # storage — exact next-use positions driving *routing*, the same
+        # closed form that drives eviction
         self.placement = placement
         self.lookahead = max(1, int(lookahead))
         self.max_epochs = max_epochs

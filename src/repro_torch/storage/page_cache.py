@@ -15,9 +15,7 @@ closed forms (``repro_torch.storage.devices.cache_hit_model``) are
 validated against them at *record* granularity over real shuffler index
 streams.
 
-The port's copy of the JAX package's numpy-only module; the multi-host
-slot rule that ``DistributedCacheSim`` needs is copied with it
-(``_host_slice_bounds``), since the multi-host tier is not ported.
+The port's copy of the JAX package's numpy-only module.
 """
 from __future__ import annotations
 
@@ -149,19 +147,12 @@ class BeladyPageCache:
         self.hits = self.misses = 0
 
 
-def _host_slice_bounds(batch_len: int, num_hosts: int) -> np.ndarray:
-    """Slot bounds of one global batch: host ``h`` consumes
-    ``batch[bounds[h]:bounds[h+1]]``, as ``ShardedSampler._even_bounds``
-    splits it; short remainder batches split proportionally."""
-    return np.linspace(0, batch_len, num_hosts + 1).astype(np.int64)
-
-
 class DistributedCacheSim:
     """Record-level simulator of the multi-host clairvoyant tier.
 
     ``H`` hosts each own a demand-fill cache over the records they
     consume (host = slot range of each global batch, the
-    ``_host_slice_bounds`` rule).  An access
+    :func:`repro_torch.sharding.placement.host_slice_bounds` rule).  An access
     resolves through the tier order the live system uses:
 
     1. consumer's own cache → **local** hit;
@@ -179,9 +170,10 @@ class DistributedCacheSim:
 
     This is the ground truth the closed forms are validated against:
     :func:`repro_torch.storage.devices.distributed_hit_model` for the
-    local/remote/storage split, and the JAX package's
-    ``ClairvoyantPlacement.expected_storage_reads`` for the aggregate
-    pigeonhole floor ``n − sum(capacity_h)`` per steady-state epoch.
+    local/remote/storage split, and
+    :meth:`repro_torch.sharding.placement.ClairvoyantPlacement.expected_storage_reads`
+    for the aggregate pigeonhole floor ``n − sum(capacity_h)`` per
+    steady-state epoch.
     """
 
     def __init__(self, num_hosts: int, capacities: Sequence[int], policy: str = "belady"):
@@ -194,9 +186,11 @@ class DistributedCacheSim:
         self.policy = policy
 
     def _consumers(self, shuffler, epoch: int) -> np.ndarray:
+        from repro_torch.sharding.placement import host_slice_bounds
+
         parts = []
         for batch in shuffler.epoch_batches(epoch):
-            b = _host_slice_bounds(len(batch), self.num_hosts)
+            b = host_slice_bounds(len(batch), self.num_hosts)
             parts.append(np.repeat(np.arange(self.num_hosts), np.diff(b)))
         return np.concatenate(parts) if parts else np.empty(0, np.int64)
 

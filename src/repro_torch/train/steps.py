@@ -8,40 +8,42 @@ state's tensors in place and returns the same state object, with the
 metrics as 0-d device tensors (reading them waits for the device).  A
 batch is ``tokens``, ``labels`` and the extras the config reads
 (``encoder_frames``, ``positions``, ``positions_3d``); microbatching
-splits every entry by rows.  Gradient compression (``compressor``) is not ported yet.
+splits every entry by rows.  With a ``compressor``
+(:class:`~repro_torch.train.compression.EFCompressor`) the state carries
+``ef_residual`` and the gradients are compressed, then decompressed,
+before AdamW, one leaf at a time.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
+from repro_torch.train.compression import EFCompressor
 from repro_torch.train.optimizer import AdamW
 from repro_torch.utils.tree import tree_leaves, tree_unflatten
 
 
-def _no_compressor(compressor) -> None:
-    if compressor is not None:
-        raise NotImplementedError("gradient compression is not ported yet")
-
-
 def init_train_state(cfg: ModelConfig, generator: torch.Generator, optimizer: AdamW,
-                     device, compressor=None):
+                     device, compressor: Optional[EFCompressor] = None):
     """Random parameters from ``generator`` (on ``device``), the
-    optimizer's state and a step count."""
-    _no_compressor(compressor)
+    optimizer's state, a step count and, with a ``compressor``, its f32
+    error-feedback residual."""
     params = M.init_params(cfg, generator, device)
-    return {
+    state = {
         "params": params,
         "opt": optimizer.init(params),
         "step": torch.zeros((), dtype=torch.int32, device=device),
     }
+    if compressor is not None:
+        state["ef_residual"] = compressor.init(params)
+    return state
 
 
 def make_train_step(cfg: ModelConfig, optimizer: AdamW, microbatches: int = 1,
-                    compressor=None):
-    _no_compressor(compressor)
-
+                    compressor: Optional[EFCompressor] = None):
     def grad_fn(params, batch):
         leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
         loss, metrics = M.loss_fn(cfg, tree_unflatten(params, leaves), batch)
@@ -71,6 +73,14 @@ def make_train_step(cfg: ModelConfig, optimizer: AdamW, microbatches: int = 1,
         else:
             loss, metrics, grads = grad_fn(params, batch)
         state["step"].add_(1)
+        if compressor is not None:
+            # error-feedback compression: what would cross the wire
+            # is the codes.  Leaf by leaf, so the transients stay one
+            # leaf's size; the residual is updated in place
+            for i, r in enumerate(tree_leaves(state["ef_residual"])):
+                compressed, (new_r,) = compressor.compress([grads[i]], [r])
+                r.copy_(new_r)
+                (grads[i],) = compressor.decompress(compressed)
         opt_metrics = optimizer.update(tree_unflatten(params, grads), state["opt"], params)
         return state, {"loss": loss, **metrics, **opt_metrics}
 

@@ -26,6 +26,7 @@ whisper-tiny's shapes: K4 with ``causal=False`` at its encoder's (8,
 cross cache at ``cur`` = T - 1 (cross-attention's), T - 2, 0 and past T,
 each on N(0, 1) inputs and on ``ref.edge_probe``'s, on which the same
 tolerance fails a planted fault at the ragged last key tile.
+Gradient compression (no kernel) gives the CPU's bits on the card.
 """
 import pytest
 import torch
@@ -660,3 +661,26 @@ def test_tma_launchers_in_a_new_thread_and_a_cuda_graph(cuda):
     assert ops.ENTRY_LAUNCHES == {"repro_torch_flash_attention_wgmma": 1,
                                   "repro_torch_rglru_scan_ring": 1,
                                   "repro_torch_rglru_scan_ring_bwd": 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [4, 8, 16])
+@pytest.mark.parametrize("seed", range(4))
+def test_compression_on_card_equals_cpu(cuda, seed, bits):
+    """``train/compression.py`` (no kernel) gives the CPU's codes, scale
+    and error-feedback residual bit for bit on the card: its divisions
+    are by 0-d tensors, since a Python divisor is applied on CUDA as a
+    product with its reciprocal, one ulp off the quotient."""
+    from repro_torch.train.compression import EFCompressor, quantize
+
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(100_003, generator=g) * 10.0 ** (seed - 2)
+    r = torch.randn(100_003, generator=g) * 10.0 ** (seed - 4)
+    codes, s = quantize(x.to(cuda), bits)
+    want_codes, want_s = quantize(x, bits)
+    assert torch.equal(codes.cpu(), want_codes) and torch.equal(s.cpu(), want_s)
+    comp = EFCompressor(bits)
+    (c, sc), nr = comp.compress([x.to(cuda)], [r.to(cuda)])
+    (want_c, want_sc), want_nr = comp.compress([x], [r])
+    assert torch.equal(c[0].cpu(), want_c[0]) and torch.equal(sc[0].cpu(), want_sc[0])
+    assert torch.equal(nr[0].cpu(), want_nr[0])

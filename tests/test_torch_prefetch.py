@@ -12,9 +12,9 @@ Same record files, same shuffler seed, the JAX module beside its port
     counter of the launchers' ``cache`` block is equal; with the
     background worker (whose counters depend on thread timing) the
     batches are equal, to the JAX tier's and to the direct plane's;
-  * ``single_host_report``: equal dicts on the same counters;
-  * ``build_data_plane`` refuses the multi-host tier's ``remote`` /
-    ``placement`` instead of ignoring them.
+  * ``single_host_report``: equal dicts on the same counters.
+``build_data_plane`` with the multi-host tier's ``remote`` / ``placement``
+is held in ``tests/test_torch_multihost.py``.
 All comparisons are exact: the tier moves bytes and counts, it computes
 nothing in floating point beyond the drift report's closed forms, which
 are the same numpy expressions on both sides.
@@ -308,15 +308,6 @@ def test_tier_reconciles_with_iostats(stores):
         assert f.cache.hits + f.cache.misses == 2 * N_RECORDS
     finally:
         f.close()
-
-
-@pytest.mark.parametrize("field", ["remote", "placement"])
-def test_multi_host_tier_refused_not_ignored(stores, field):
-    ts, _, _ = stores["dense"]
-    cfg = ReadPathConfig(shuffler=LIRSShuffler(N_RECORDS, BATCH), cache_budget_bytes=1 << 16,
-                         **{field: object()})
-    with pytest.raises(NotImplementedError, match="multi-host"):
-        build_data_plane(ts, cfg)
 
 
 # ------------------------------------------------------------------ drift

@@ -329,16 +329,7 @@ def test_svm_path_through_the_tier_matches_jax(tmp_path):
 # -------------------------------------------------- device and fallback
 
 
-def test_no_silent_fallbacks(tmp_path):
-    meta = make_classification_dataset(str(tmp_path / "s.rrec"), 20, 16, sparse=True,
-                                       nnz_range=(2, 4), seed=0)
-    ts = RecordStore(meta.path)
-    LocationGenerator().generate(ts)
-    # the multi-host tier's peer source is refused, not ignored
-    with pytest.raises(NotImplementedError, match="multi-host"):
-        build_data_plane(ts, ReadPathConfig(mode="ragged", shuffler=LIRSShuffler(20, 4),
-                                            cache_budget_bytes=1 << 20, remote=object()))
-    ts.close()
+def test_no_silent_fallbacks():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA is not available"):

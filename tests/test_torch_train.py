@@ -358,8 +358,6 @@ def _assert_adam_step_close(state, jstate, lr, c):
 def test_unported_step_options_raise(pair):
     _, _, tcfg, _ = pair
     opt = AdamW()
-    with pytest.raises(NotImplementedError, match="compression"):
-        make_train_step(tcfg, opt, compressor=object())
     state = init_train_state(tcfg, torch.Generator().manual_seed(0), opt, "cpu")
     toks, labels = _batch(16, 9)
     with pytest.raises(ValueError, match="microbatches"):
@@ -627,12 +625,51 @@ def test_launcher_smoke_cpu_runs_and_resumes(tmp_path):
     assert s2["io_resilience"]["retries"] > 0
 
 
-@pytest.mark.parametrize("flags", [["--hosts", "2"], ["--hosts", "2", "--cache-mb", "1"],
-                                   ["--hosts", "4", "--cache-mb", "1", "--drift-device", "ssd"]])
-def test_launcher_refuses_the_unported_tier(flags):
-    """The multi-host tier is not ported: ``--hosts > 1`` raises, with or
-    without the single-host tier's flags."""
-    with pytest.raises(NotImplementedError, match="multi-host tiered read path"):
+# the multi-host tier at smoke size: 16 token records of 17 int32 (68
+# bytes), a fleet budget of half of them, 2 epochs of 4 global batches of 4
+MH_ARGS = ["--arch", "recurrentgemma-2b", "--smoke", "--num-records", "16", "--seq-len", "16",
+           "--batch", "4", "--epochs", "2", "--lr", "3e-3", "--prefetch-lookahead", "2",
+           "--cache-mb", str(8 * 68 / 2**20), "--eviction-policy", "belady"]
+DISTRIBUTED_MODEL_KEYS = ("hosts", "policy", "fleet_capacity_records",
+                          "expected_steady_storage_records_per_epoch")
+
+
+@pytest.fixture(scope="module")
+def one_host_summary():
+    return launch.main(MH_ARGS + ["--hosts", "1", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("hosts", [2, 4])
+def test_launcher_hosts_match_one_host_and_jax(one_host_summary, hosts):
+    """``--hosts N --cache-mb``: the cluster serves every batch as one host
+    does, so the losses are equal; the ``distributed`` block's placement
+    numbers and the drift report's context and checks are the JAX
+    launcher's at the same flags, and the storage reads sit at the floor."""
+    from repro.launch import train as jax_launch
+
+    got = launch.main(MH_ARGS + ["--hosts", str(hosts), "--device", "cpu"])
+    want = jax_launch.main(MH_ARGS + ["--hosts", str(hosts)])
+    assert got["losses"] == one_host_summary["losses"] and len(got["losses"]) == 8
+    assert "cache" not in got and "cache" in one_host_summary
+    dist, jdist = got["distributed"], want["distributed"]
+    assert list(dist) == list(jdist)
+    for key in DISTRIBUTED_MODEL_KEYS:
+        assert dist[key] == jdist[key]
+    assert dist["hosts"] == hosts and dist["fleet_capacity_records"] == 8
+    assert dist["storage_records"] == 16 + dist["expected_steady_storage_records_per_epoch"]
+    assert dist["remote_hits"] > 0
+    assert dist["peer_failures"] == dist["push_errors"] == 0
+    assert got["drift"]["context"] == want["drift"]["context"]
+    assert set(got["drift"]["checks"]) == set(want["drift"]["checks"])
+    assert got["drift"]["checks"]["split/storage"]["ok"]
+
+
+@pytest.mark.parametrize("flags", [["--hosts", "2"], ["--hosts", "4", "--drift-device", "ssd"],
+                                   ["--hosts", "0", "--cache-mb", "1"]])
+def test_launcher_hosts_need_the_tier(flags):
+    """``--hosts > 1`` without ``--cache-mb`` raises (the JAX launcher
+    quietly runs one host), as does ``--hosts`` below 1."""
+    with pytest.raises(ValueError, match="--hosts"):
         launch.main(ARGS + flags)
 
 
