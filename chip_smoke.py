@@ -204,7 +204,23 @@
    decode steps each with its (1, 3, 1) positions, f32 (1e-3) and bf16
    (5e-2), K4 and K6 at group 8, D 128; the default positions must move
    the logits by more than each tolerance; the peak 5 GiB under the card.
-18. Prints ``{"kernels": [...]}``, then ``{"ok": true, "device": ...}`` as
+18. The SPMD layout (``spmd_phase``) on a one-card mesh (a one-rank
+   NCCL group, ``make_host_mesh(1, 1)``): recurrentgemma-2b at full width
+   and depth, state and batch laid out as DTensors by ``state_pspecs`` and
+   ``batch_pspecs``, SPMD_TRAIN_STEPS train steps through
+   ``make_train_step(cfg, opt, ctx=ShardCtx(mesh))`` against the plain
+   step on the same weights and batches run first (losses to 1e-6
+   relative, K5's launches equal; step seconds of both, peak memory);
+   prefill RG_BATCH x RG_PROMPT and RG_DECODE greedy decode steps with the
+   cache laid out by ``cache_pspecs`` against the plain path fed the same
+   tokens (logits within ``TOL``; K5 and K6 at D 256 launches equal); and
+   granite-3-8b at full width, GRANITE_LAYERS layers, prefill and decode
+   likewise, for K4 and K6 at D 128 (recurrentgemma's local attention
+   runs no K4).  Every kernel launch there goes through ``local_map``.
+   Then the dry run (``python -m repro_torch.launch.dryrun``) in a
+   subprocess for SPMD_DRYRUN's cells, each ``ok`` with FLOPs, bytes and
+   collectives above 0.
+19. Prints ``{"kernels": [...]}``, then ``{"ok": true, "device": ...}`` as
    the last line.  Any failed check exits non-zero before those lines.
 """
 from __future__ import annotations
@@ -308,6 +324,10 @@ RG_RING = (RG_BATCH, 10, 1, 256, 2048)
 # granite-3-8b at full width, 4 of its 40 layers: scalar-position decode
 GRANITE_LAYERS, GRANITE_PROMPT, GRANITE_EXTEND = 4, 120, 8
 BLOCKED_BLOCK = 1024  # attn_block's default: the blocked check at LONG_CONTEXT
+# the SPMD layout on a one-card mesh: recurrentgemma-2b's train steps of
+# 1 x 4,096 tokens, and the dry run's cells (arch, shape, mesh)
+SPMD_TRAIN_STEPS, SPMD_SEQ = 4, 4096
+SPMD_DRYRUN = (("granite-3-8b", "train_4k", "single"), ("recurrentgemma-2b", "decode_32k", "multi"))
 
 MOE_ARCH = "qwen2-moe-a2.7b"
 # qwen2-moe-a2.7b at full width: prefill of MOE_CHECK_TOKENS under
@@ -407,6 +427,19 @@ def compare(label, got, want, tol, show=True):
         print(f"  {label}: max_abs_err {max_err:.3e} (tol {tol:g}) {'ok' if ok else 'BREACH'}")
     check(ok, f"{label} outside tolerance")
     return max_err
+
+
+def compare_decode(label, q, kc, vc, cur, tol, show=True):
+    """flash_decode's output and its rows' log-sum-exps (what combines a
+    cache split over ranks) against the plain version's; returns the
+    output's max_abs_err."""
+    from repro_torch.kernels import ops, ref
+
+    got, lse = ops._decode(q, kc, vc, cur)
+    torch.cuda.synchronize()
+    want, want_lse = ref.flash_decode(q, kc, vc, cur, return_lse=True)
+    compare(f"{label} lse", lse, want_lse, tol, show=False)
+    return compare(label, got, want, tol, show=show)
 
 
 def time_ms(fns, n=50, rounds=3):
@@ -612,10 +645,8 @@ def kernel_phase(dev):
     cur = torch.tensor([0, 17, 31, 32, 100, c - 1, c, c + 11], dtype=torch.int32, device=dev)
     for dt, d in itertools.product((torch.bfloat16, torch.float32), (128, STABLELM_D)):
         q, kc, vc = randn(8, 32, d, dt=dt), randn(8, c, 8, d, dt=dt), randn(8, c, 8, d, dt=dt)
-        got = ops.flash_decode(q, kc, vc, cur)
-        torch.cuda.synchronize()
-        compare(f"{dt} q{tuple(q.shape)} cache{tuple(kc.shape)} cur={cur.tolist()}",
-                got, ref.flash_decode(q, kc, vc, cur), TOL[str(dt)])
+        compare_decode(f"{dt} q{tuple(q.shape)} cache{tuple(kc.shape)} cur={cur.tolist()}",
+                       q, kc, vc, cur, TOL[str(dt)])
     decode_sweep(dev)
 
     def timed_decode(d):
@@ -635,7 +666,7 @@ def kernel_phase(dev):
         })
         used = int((cur.clamp(max=c - 1) + 1).sum())  # cache positions read
         kh, h = kc.shape[2], q.shape[1]
-        nbytes = 2 * (2 * q.numel() + 2 * used * kh * d) + 4 * cur.numel()
+        nbytes = 2 * (2 * q.numel() + 2 * used * kh * d) + 4 * (cur.numel() + q.shape[0] * h)
         out = dict(max_abs_err=err, ms=t["kernel"], plain_ms=t["plain"],
                    **bound(nbytes, 4 * used * h * d, BF16_FLOPS), library_ms=t["library"])
         print(f"  D = {d}: device ms per call: {t}; eager ms per call: {eager}; "
@@ -707,17 +738,15 @@ def decode_sweep(dev):
                 worst = 0.0
                 for group in DECODE_GROUPS:
                     q = torch.randn(b, kh * group, d, generator=g, device=dev).to(dt)
-                    got = ops.flash_decode(q, kc, vc, cur)
-                    torch.cuda.synchronize()
-                    worst = max(worst, compare(f"{dt} D={d} T={t} G={group}", got,
-                                               ref.flash_decode(q, kc, vc, cur), TOL[str(dt)],
-                                               show=False))
+                    worst = max(worst, compare_decode(f"{dt} D={d} T={t} G={group}",
+                                                      q, kc, vc, cur, TOL[str(dt)], show=False))
                     cases += 1
                 kernel = ops._decode_kernel(dt, d)
                 if kernel == "cluster":
                     kernel += f", splits/chunk {ops._decode_splits(b, kh, t, sms)}"
                 print(f"  {dt} D={d} T={t} ({kernel}) cur={curs if len(curs) < 12 else '...'}"
-                      f" groups {DECODE_GROUPS}: max_abs_err {worst:.3e} (tol {TOL[str(dt)]:g}) ok")
+                      f" groups {DECODE_GROUPS}: max_abs_err {worst:.3e} (tol {TOL[str(dt)]:g}), "
+                      f"lse within it too, ok")
         for t in (160, 4096):
             q = torch.randn(1, 32, 128, generator=g, device=dev).to(dt)
             kc, vc = (torch.randn(1, t, 8, 128, generator=g, device=dev).to(dt) for _ in range(2))
@@ -2264,12 +2293,10 @@ def decode256_phase(dev):
         kc, vc = (torch.randn(b, tt, kh, d, generator=g, device=dev).to(torch.bfloat16)
                   for _ in range(2))
         cur = torch.tensor(curs, dtype=torch.int32, device=dev)
-        got = ops.flash_decode(q, kc, vc, cur)
-        torch.cuda.synchronize()
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        compare(f"q{tuple(q.shape)} cache{tuple(kc.shape)} cur={curs} splits/chunk "
-                f"{ops._decode_splits(b, kh, tt, sms)}", got, ref.flash_decode(q, kc, vc, cur),
-                TOL["torch.bfloat16"])
+        compare_decode(f"q{tuple(q.shape)} cache{tuple(kc.shape)} cur={curs} splits/chunk "
+                       f"{ops._decode_splits(b, kh, tt, sms)}", q, kc, vc, cur,
+                       TOL["torch.bfloat16"])
     q = torch.randn(b, h, d, generator=g, device=dev).to(torch.bfloat16)
     kc, vc = (torch.randn(b, t, kh, d, generator=g, device=dev).to(torch.bfloat16)
               for _ in range(2))
@@ -2286,7 +2313,7 @@ def decode256_phase(dev):
         "plain": lambda: ref.flash_decode(q, kc, vc, cur),
         "library": lambda: F.scaled_dot_product_attention(q4, kt, vt, enable_gqa=True),
     })
-    nbytes = 2 * (2 * q.numel() + kc.numel() + vc.numel()) + 4 * cur.numel()
+    nbytes = 2 * (2 * q.numel() + kc.numel() + vc.numel()) + 4 * (cur.numel() + b * h)
     entry = dict(shape=f"q{tuple(q.shape)} cache{tuple(kc.shape)} bf16", max_abs_err=err,
                  ms=tm_["kernel"], plain_ms=tm_["plain"],
                  **bound(nbytes, 4 * b * t * h * d, BF16_FLOPS), library_ms=tm_["library"])
@@ -3707,6 +3734,207 @@ def qwen_vl_phase(dev):
     _free()
 
 
+def _whole(t):
+    """A DTensor gathered whole (a plain tensor as it is)."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def _spmd_train(cfg, opt, batches, dev, mesh=None):
+    """SPMD_TRAIN_STEPS steps from seed 0's state, plain or (``mesh``) laid
+    out by the spec rules; ``(losses, step seconds, launches, entry
+    launches, peak GiB)``, every count from 0 just before the steps."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import dp_axes
+    from repro_torch.layers.common import ShardCtx
+    from repro_torch.sharding.specs import batch_pspecs, distribute_tree, state_pspecs
+    from repro_torch.train.steps import init_train_state, make_train_step
+
+    state = init_train_state(cfg, torch.Generator(dev).manual_seed(0), opt, dev)
+    ctx = None
+    if mesh is not None:
+        ctx = ShardCtx(mesh, dp_axes(mesh))
+        state = distribute_tree(state, state_pspecs(cfg, state, mesh), mesh)
+        batches = [distribute_tree(b, batch_pspecs(b, mesh, ctx.dp), mesh) for b in batches]
+    step = make_train_step(cfg, opt, ctx)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    losses, secs = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        _, out = step(state, b)
+        losses.append(_whole(out["loss"]).clone())
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    launches, entries = dict(ops.LAUNCHES), dict(ops.ENTRY_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    del state, step
+    _free()
+    return torch.stack(losses), secs, launches, entries, peak
+
+
+def _spmd_serve(cfg, params, toks, steps, dev, mesh=None, feed=None):
+    """Prefill ``toks``, then ``steps`` decode steps (greedy, or fed the
+    tokens ``feed``), plain or (``mesh``) laid out by the spec rules, the
+    cache by ``cache_pspecs`` after the prefill.  Returns ``(prefill
+    logits, [decode logits], fed tokens, launches, host seconds)``."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import dp_axes
+    from repro_torch.layers.common import ShardCtx
+    from repro_torch.sharding.specs import (batch_pspecs, cache_pspecs, distribute_tree,
+                                            param_pspecs)
+    from repro_torch.train.steps import make_decode_step, make_prefill_step
+
+    ctx, lay = None, (lambda t, specs: t)
+    if mesh is not None:
+        ctx = ShardCtx(mesh, dp_axes(mesh))
+        lay = lambda t, specs: distribute_tree(t, specs, mesh)  # noqa: E731
+        params = lay(params, param_pspecs(cfg, params, mesh))
+    tok_spec = lambda t: batch_pspecs({"t": t}, mesh, ctx.dp)["t"] if ctx else None  # noqa: E731
+    prefill, decode = make_prefill_step(cfg, ctx), make_decode_step(cfg, ctx)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    cache, logits = prefill(params, lay(toks, tok_spec(toks)))
+    if ctx is not None:
+        cache = lay(cache, cache_pspecs(cache, mesh, ctx.dp))
+    pre, outs, fed = _whole(logits), [], []
+    tok = feed[0] if feed is not None else _greedy(pre)
+    for i in range(steps):
+        fed.append(tok)
+        cache, logits = decode(params, cache, lay(tok, tok_spec(tok)))
+        outs.append(_whole(logits))
+        tok = feed[i + 1] if feed is not None and i + 1 < len(feed) else _greedy(outs[-1])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return pre, outs, fed, dict(ops.LAUNCHES), secs
+
+
+def spmd_phase(dev):
+    """The SPMD layout on a one-card mesh, every kernel through
+    ``local_map`` (module docstring, item 18): recurrentgemma-2b trained,
+    prefilled and decoded as DTensors against the plain path, granite-3-8b
+    prefilled and decoded likewise, then the dry run of SPMD_DRYRUN's
+    cells in subprocesses.  Returns the laid-out runs' launches by kernel
+    (K5 from training, K6 from both decodes, K4 from granite's prefill)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as M
+    from repro_torch.train.optimizer import AdamW, AdamWConfig
+
+    _free()
+    cfg = get_config("recurrentgemma-2b")
+    opt = AdamW(AdamWConfig(lr=1e-3, warmup_steps=10))
+    gen = torch.Generator(dev).manual_seed(1)
+    batches = []
+    for _ in range(SPMD_TRAIN_STEPS):
+        t = torch.randint(0, cfg.vocab_size, (1, SPMD_SEQ + 1), generator=gen, device=dev)
+        batches.append({"tokens": t[:, :-1].to(torch.int32), "labels": t[:, 1:].to(torch.int32)})
+    print(f"SPMD layout on a one-card mesh: {cfg.name} at full width and depth, "
+          f"{SPMD_TRAIN_STEPS} train steps of 1 x {SPMD_SEQ}; plain first, then as DTensors")
+    plain = _spmd_train(cfg, opt, batches, dev)
+    mesh = make_host_mesh(1, 1)
+    try:
+        laid = _spmd_train(cfg, opt, batches, dev, mesh)
+        gap = float(((laid[0] - plain[0]).abs() / plain[0].abs()).max())
+        print(f"  losses plain {plain[0].tolist()}, DTensor {laid[0].tolist()}: largest "
+              f"relative difference {gap:.3e} (tol 1e-6)")
+        print(f"  step seconds plain {[round(x, 4) for x in plain[1]]}, DTensor "
+              f"{[round(x, 4) for x in laid[1]]}; median of steps 2-{SPMD_TRAIN_STEPS}: plain "
+              f"{statistics.median(plain[1][1:]):.4f} s, DTensor "
+              f"{statistics.median(laid[1][1:]):.4f} s (DTensor's host overhead "
+              f"{statistics.median(laid[1][1:]) - statistics.median(plain[1][1:]):+.4f} s a step); "
+              f"peak memory plain {plain[4]:.2f} GiB, DTensor {laid[4]:.2f} GiB")
+        print(f"  launches plain {plain[2]}, DTensor {laid[2]}")
+        check(bool(torch.isfinite(laid[0]).all()), f"DTensor losses {laid[0].tolist()}")
+        check(gap <= 1e-6, f"DTensor losses differ from the plain step's by {gap:.3e}")
+        for name in ("rglru_scan", "rglru_scan_bwd"):
+            check(laid[2][name] == plain[2][name] > 0,
+                  f"{name}: {laid[2][name]} launches laid out, {plain[2][name]} plain")
+        check(laid[3] == plain[3], f"entry points {laid[3]} laid out, {plain[3]} plain")
+        launches = {name: laid[2][name] for name in ("rglru_scan", "rglru_scan_bwd")}
+        del batches
+        _free()
+
+        params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        toks = torch.randint(1, cfg.vocab_size, (RG_BATCH, RG_PROMPT),
+                             generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+        tol = TOL[str(cfg.compute_dtype)]
+        want = _spmd_serve(cfg, params, toks, RG_DECODE, dev)
+        got = _spmd_serve(cfg, params, toks, RG_DECODE, dev, mesh, feed=want[2])
+        print(f"  {cfg.name} prefill {RG_BATCH} x {RG_PROMPT} and {RG_DECODE} decode steps: "
+              f"plain {want[4]:.2f} s, DTensor {got[4]:.2f} s (host clock); launches plain "
+              f"{want[3]}, DTensor {got[3]}")
+        compare(f"{cfg.name} prefill logits, DTensor vs plain", got[0], want[0], tol)
+        compare(f"{cfg.name} decode logits ({RG_DECODE} steps), DTensor vs plain",
+                torch.stack(got[1]), torch.stack(want[1]), tol)
+        for name in ("flash_decode", "rglru_scan"):
+            check(got[3][name] == want[3][name] > 0,
+                  f"{name}: {got[3][name]} launches laid out, {want[3][name]} plain")
+        launches["flash_decode"] = got[3]["flash_decode"]
+        del params
+        _free()
+
+        gcfg = get_config("granite-3-8b")
+        gcfg = gcfg.replace(stages=((gcfg.stages[0][0], GRANITE_LAYERS),))
+        params = M.init_params(gcfg, torch.Generator(device=dev).manual_seed(0), dev)
+        toks = torch.randint(1, gcfg.vocab_size, (RG_BATCH, GRANITE_PROMPT),
+                             generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+        want = _spmd_serve(gcfg, params, toks, GRANITE_EXTEND, dev)
+        got = _spmd_serve(gcfg, params, toks, GRANITE_EXTEND, dev, mesh, feed=want[2])
+        print(f"  granite-3-8b at full width, {GRANITE_LAYERS} layers: prefill {RG_BATCH} x "
+              f"{GRANITE_PROMPT}, {GRANITE_EXTEND} decode steps; launches plain {want[3]}, "
+              f"DTensor {got[3]}")
+        compare("granite-3-8b prefill logits, DTensor vs plain", got[0], want[0], tol)
+        compare(f"granite-3-8b decode logits ({GRANITE_EXTEND} steps), DTensor vs plain",
+                torch.stack(got[1]), torch.stack(want[1]), tol)
+        for name in ("flash_attention", "flash_decode"):
+            check(got[3][name] == want[3][name] > 0,
+                  f"{name}: {got[3][name]} launches laid out, {want[3][name]} plain")
+        launches["flash_attention"] = got[3]["flash_attention"]
+        launches["flash_decode"] += got[3]["flash_decode"]
+        del params
+        _free()
+    finally:
+        dist.destroy_process_group()
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        out = os.path.join(tmp, "dryrun.json")
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+        for arch, shape, mesh_kind in SPMD_DRYRUN:
+            t0 = time.perf_counter()
+            run = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+                 shape, "--mesh", mesh_kind, "--out", out],
+                env=env, capture_output=True, text=True, timeout=300, cwd=ROOT)
+            wall = time.perf_counter() - t0
+            check(run.returncode == 0, f"dry run of {arch} {shape} {mesh_kind} exited "
+                  f"{run.returncode}: {run.stdout[-1500:]} {run.stderr[-1500:]}")
+            with open(out) as f:
+                r = next(v for v in json.load(f).values()
+                         if (v["arch"], v["shape"], v["mesh"]) == (arch, shape, mesh_kind))
+            rl = r["roofline"]
+            print(f"  dry run {arch} {shape} {mesh_kind} ({r['chips']} ranks): status "
+                  f"{r['status']}, trace {r['trace_s']} s ({wall:.1f} s with the process); "
+                  f"per device {r['flops_per_device']:.4e} FLOPs, {r['bytes_per_device']:.4e} "
+                  f"bytes, {r['collective_per_device_bytes']:.4e} collective bytes over "
+                  f"{r['collective_count']} collectives {r['collective_by_kind']}; roofline "
+                  f"compute {rl['t_compute_s']:.4e} s, memory {rl['t_memory_s']:.4e} s, "
+                  f"collective {rl['t_collective_s']:.4e} s, dominant {rl['dominant']}; "
+                  f"useful_flops_ratio {r['model']['useful_flops_ratio']:.4f}; peak "
+                  f"{r['memory']['peak_bytes'] / 1e9:.2f} GB")
+            check(r["status"] == "ok", f"dry run {arch} {shape}: {r.get('error')}")
+            check(r["flops_per_device"] > 0 and r["bytes_per_device"] > 0
+                  and r["collective_per_device_bytes"] > 0, f"dry run {arch} {shape}: {r}")
+            check(rl["dominant"] in ("compute", "memory", "collective"), f"dominant {rl}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3803,7 +4031,12 @@ def main() -> int:
     t0 = time.perf_counter()
     qwen_vl_phase(dev)
     print(f"{QWEN_VL_ARCH} phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    spmd_launches = spmd_phase(dev)
+    print(f"SPMD phase {time.perf_counter() - t0:.1f} s")
     for row in rows:
+        if row["name"] in spmd_launches:
+            row["spmd_launches"] = spmd_launches[row["name"]]
         if row["name"] == "flash_decode":
             row["head_dim_256"] = dict(wide_decode, launches=rg_launches["flash_decode"])
         if row["name"] in ("flash_attention", "flash_decode"):
@@ -3814,12 +4047,14 @@ def main() -> int:
     for name in ("rglru_scan", "rglru_scan_bwd"):
         rows.append(dict(scans[name], launches=train_launches[name],
                          multihost_train_launches=multihost_launches[name],
-                         compression_launches=compression_launches[name]))
+                         compression_launches=compression_launches[name],
+                         spmd_launches=spmd_launches[name]))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "context_4096", "head_dim_160",
             "head_dim_256", "qwen2_moe_serve_launches", "whisper", "b1_ms",
             "device_ids_ms", "device_ids_bound_ms", "bandwidth_ms", "multihost_train_launches",
-            "compression_launches")
+            "compression_launches", "spmd_launches")
+    print(smi)  # the card again, beside the numbers: a long run's head may be cut off
     print(json.dumps({"kernels": [{k: row[k] for k in keys if k in row} for row in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,7 +7,7 @@ All ten of the JAX package's architectures are listed.
 from __future__ import annotations
 
 import importlib
-from typing import List
+from typing import Dict, List
 
 from repro_torch.models.config import ModelConfig
 
@@ -30,3 +30,27 @@ ARCH_IDS: List[str] = list(_MODULES)
 def get_config(name: str, smoke: bool = False) -> ModelConfig:
     mod = importlib.import_module(_MODULES[name])
     return mod.smoke_config() if smoke else mod.full_config()
+
+
+# Shape cells assigned to the LM-family pool (all archs share these).
+SHAPES: Dict[str, dict] = {
+    "train_4k": dict(seq_len=4096, global_batch=256, kind="train"),
+    "prefill_32k": dict(seq_len=32768, global_batch=32, kind="prefill"),
+    "decode_32k": dict(seq_len=32768, global_batch=128, kind="decode"),
+    "long_500k": dict(seq_len=524288, global_batch=1, kind="decode"),
+}
+
+# long_500k requires sub-quadratic sequence mixing.
+SUBQUADRATIC = {"recurrentgemma-2b", "xlstm-1.3b"}
+
+
+def cell_is_runnable(arch: str, shape: str) -> bool:
+    if shape == "long_500k":
+        return arch in SUBQUADRATIC
+    return True
+
+
+def all_cells():
+    return [
+        (a, s) for a in ARCH_IDS for s in SHAPES if cell_is_runnable(a, s)
+    ]

@@ -47,8 +47,8 @@ _T = ctypes.POINTER(GatherTable)
 _SIGNATURES = {
     "repro_torch_flash_attention": [_P, _P, _P, _P] + [_I] * 8 + [_P],
     "repro_torch_flash_attention_wgmma": [_P, _P, _P, _P] + [_I] * 7 + [_P],
-    "repro_torch_flash_decode": [_P, _P, _P, _P, _P] + [_I] * 6 + [_P],
-    "repro_torch_flash_decode_cluster": [_P, _P, _P, _P, _P] + [_I] * 7 + [_P],
+    "repro_torch_flash_decode": [_P] * 6 + [_I] * 6 + [_P],
+    "repro_torch_flash_decode_cluster": [_P] * 6 + [_I] * 7 + [_P],
     "repro_torch_csr_dot": [_P, _P, _P, _P, _I, _I, _P],
     "repro_torch_gather_tables": [_T, _I, _P, _L, _P],
     "repro_torch_gather_tables_params": [_T, _I, _P, _L, _P],

@@ -22,6 +22,8 @@
 // advancing the positions of idle slots past the arena's end, and such a
 // row attends the whole cache without reading past T. The T edge is
 // masked here (the arena length prompt_capacity + gen is arbitrary).
+// Each row's log-sum-exp m + log(l) goes to lse when it is not null: a
+// cache split over ranks combines the ranks' partial outputs by it.
 #include "attention_tile.cuh"
 
 namespace repro_torch {
@@ -32,8 +34,8 @@ template <typename T, int MaxD>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const int* __restrict__ cur,
-                    T* __restrict__ o, int t_len, int n_heads, int n_kv_heads,
-                    int d_head, float scale) {
+                    T* __restrict__ o, float* __restrict__ lse, int t_len,
+                    int n_heads, int n_kv_heads, int d_head, float scale) {
   TileSmem<MaxD>& sm = tile_smem<MaxD>();  // qs: kMaxGroup rows
   auto& qs = sm.qs;
   auto& tile = sm.tile;
@@ -76,35 +78,37 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int r = 0; r < kRowsPerWarp; ++r) {
     const int g = r * kWarps + warp;
     if (g < group) {
-      row_emit<T, MaxD>(st[r], d_head, o + ((long)b * n_heads + (long)kvh * group + g) * d_head);
+      const long row = (long)b * n_heads + (long)kvh * group + g;
+      row_emit<T, MaxD>(st[r], d_head, o + row * d_head);
+      if (lse != nullptr && (threadIdx.x & 31) == 0) lse[row] = st[r].m + logf(fmaxf(st[r].l, 1e-30f));
     }
   }
 }
 
 template <typename T, int MaxD>
 static int launch_class(const void* q, const void* k, const void* v,
-                        const int* cur, void* o, int b, int t_len, int n_heads,
-                        int n_kv_heads, int d_head, cudaStream_t stream) {
+                        const int* cur, void* o, float* lse, int b, int t_len,
+                        int n_heads, int n_kv_heads, int d_head, cudaStream_t stream) {
   const cudaError_t err = set_tile_smem<MaxD>(flash_decode_kernel<T, MaxD>);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(n_kv_heads, b);
   const float scale = 1.f / sqrtf((float)d_head);
   flash_decode_kernel<T, MaxD><<<grid, kThreads, sizeof(TileSmem<MaxD>), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), cur, static_cast<T*>(o), t_len, n_heads,
+      static_cast<const T*>(v), cur, static_cast<T*>(o), lse, t_len, n_heads,
       n_kv_heads, d_head, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 static int launch(const void* q, const void* k, const void* v, const int* cur,
-                  void* o, int b, int t_len, int n_heads, int n_kv_heads,
+                  void* o, float* lse, int b, int t_len, int n_heads, int n_kv_heads,
                   int d_head, cudaStream_t stream) {
   if (d_head <= 128)
-    return launch_class<T, 128>(q, k, v, cur, o, b, t_len, n_heads, n_kv_heads,
+    return launch_class<T, 128>(q, k, v, cur, o, lse, b, t_len, n_heads, n_kv_heads,
                                 d_head, stream);
   if (d_head <= kMaxD)
-    return launch_class<T, kMaxD>(q, k, v, cur, o, b, t_len, n_heads,
+    return launch_class<T, kMaxD>(q, k, v, cur, o, lse, b, t_len, n_heads,
                                   n_kv_heads, d_head, stream);
   return (int)cudaErrorInvalidValue;
 }
@@ -112,19 +116,21 @@ static int launch(const void* q, const void* k, const void* v, const int* cur,
 }  // namespace repro_torch
 
 // q (B,H,D), k/v caches (B,T,K,D), cur (B,) int32, o (B,H,D), all
-// contiguous; dtype 0 = f32, 1 = bf16. Returns cudaGetLastError().
+// contiguous; lse (B,H) f32 or null; dtype 0 = f32, 1 = bf16. Returns
+// cudaGetLastError().
 extern "C" int repro_torch_flash_decode(const void* q, const void* k,
                                         const void* v, const void* cur,
-                                        void* o, int b, int t_len, int n_heads,
-                                        int n_kv_heads, int d_head, int dtype,
-                                        void* stream) {
+                                        void* o, void* lse, int b, int t_len,
+                                        int n_heads, int n_kv_heads, int d_head,
+                                        int dtype, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   const int* c = static_cast<const int*>(cur);
+  float* l = static_cast<float*>(lse);
   if (dtype == 0)
-    return repro_torch::launch<float>(q, k, v, c, o, b, t_len, n_heads,
+    return repro_torch::launch<float>(q, k, v, c, o, l, b, t_len, n_heads,
                                       n_kv_heads, d_head, st);
   if (dtype == 1)
-    return repro_torch::launch<__nv_bfloat16>(q, k, v, c, o, b, t_len, n_heads,
+    return repro_torch::launch<__nv_bfloat16>(q, k, v, c, o, l, b, t_len, n_heads,
                                               n_kv_heads, d_head, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -41,7 +41,9 @@
 //   map_shared_rank, once a barrier arrived at on entry shows every peer
 //   has started); after one cluster.sync() each block merges its own
 //   rows from local shared memory: M = max m, w = exp(m - M),
-//   o = sum(w acc) / max(sum(w l), 1e-30). No global scratch, no atomics,
+//   o = sum(w acc) / max(sum(w l), 1e-30), and, when lse is not null, the
+//   row's log-sum-exp M + log(sum(w l)), by which a cache split over ranks
+//   combines the ranks' partial outputs. No global scratch, no atomics,
 //   one launch.
 // - A block whose slice lies wholly past cur[b] still reaches the cluster
 //   barriers (no early return) and pushes m = -1e30, l = 0, acc = 0, which
@@ -182,7 +184,8 @@ __device__ __forceinline__ void fd_cluster_body(const __nv_bfloat16* __restrict_
                                                 const __nv_bfloat16* __restrict__ k,
                                                 const __nv_bfloat16* __restrict__ v,
                                                 const int* __restrict__ cur,
-                                                __nv_bfloat16* __restrict__ o, int t_len,
+                                                __nv_bfloat16* __restrict__ o,
+                                                float* __restrict__ lse, int t_len,
                                                 int n_heads, int n_kv_heads, int chunk,
                                                 float scale) {
   constexpr int kKSteps = D / 16;      // k-steps of Q K^T
@@ -371,18 +374,32 @@ __device__ __forceinline__ void fd_cluster_body(const __nv_bfloat16* __restrict_
     }
     ob[(long long)g * D + d] = __float2bfloat16(a / fmaxf(l, 1e-30f));
   }
+  // each row's log-sum-exp in a loop of its own: written from the merge
+  // loop above, it made ptxas spill at D = 256
+  if (lse != nullptr) {
+    for (int row = tid; row < per; row += kThreads) {
+      const int g = rank + splits * row;
+      if (g >= group) continue;
+      float mx = kNegInf;
+      for (int src = 0; src < splits; ++src) mx = fmaxf(mx, sm.ml[0][src * per + row]);
+      float l = 0.f;
+      for (int src = 0; src < splits; ++src)
+        l = fmaf(sm.ml[1][src * per + row], expf(sm.ml[0][src * per + row] - mx), l);
+      lse[(long long)b * n_heads + (long long)kvh * group + g] = mx + logf(fmaxf(l, 1e-30f));
+    }
+  }
 }
 
 #define FD_CLUSTER_PARAMS                                                                       \
   const __nv_bfloat16 *__restrict__ q, const __nv_bfloat16 *__restrict__ k,                    \
       const __nv_bfloat16 *__restrict__ v, const int *__restrict__ cur,                        \
-      __nv_bfloat16 *__restrict__ o, int t_len, int n_heads, int n_kv_heads, int chunk,        \
-      float scale
+      __nv_bfloat16 *__restrict__ o, float *__restrict__ lse, int t_len, int n_heads,          \
+      int n_kv_heads, int chunk, float scale
 
 // head dims 64, 128 and 256
 template <int D>
 __global__ void __launch_bounds__(kThreads) fd_cluster_kernel(FD_CLUSTER_PARAMS) {
-  fd_cluster_body<D>(q, k, v, cur, o, t_len, n_heads, n_kv_heads, chunk, scale);
+  fd_cluster_body<D>(q, k, v, cur, o, lse, t_len, n_heads, n_kv_heads, chunk, scale);
 }
 
 // head dim 160: under the default bounds ptxas holds this instantiation to
@@ -390,7 +407,7 @@ __global__ void __launch_bounds__(kThreads) fd_cluster_kernel(FD_CLUSTER_PARAMS)
 // (~200). Its ~101 KB of shared memory allows two blocks an SM at most.
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1) fd_cluster_kernel_1sm(FD_CLUSTER_PARAMS) {
-  fd_cluster_body<D>(q, k, v, cur, o, t_len, n_heads, n_kv_heads, chunk, scale);
+  fd_cluster_body<D>(q, k, v, cur, o, lse, t_len, n_heads, n_kv_heads, chunk, scale);
 }
 #undef FD_CLUSTER_PARAMS
 
@@ -404,9 +421,9 @@ constexpr auto cluster_kernel() {  // instantiates only the kernel D runs
 }
 
 template <int D>
-static int launch(const void* q, const void* k, const void* v, const int* cur, void* o, int b,
-                  int t_len, int n_heads, int n_kv_heads, int splits, int chunk,
-                  cudaStream_t stream) {
+static int launch(const void* q, const void* k, const void* v, const int* cur, void* o,
+                  float* lse, int b, int t_len, int n_heads, int n_kv_heads, int splits,
+                  int chunk, cudaStream_t stream) {
   const auto kernel = cluster_kernel<D>();
   const int smem = (int)sizeof(Smem<D>);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -427,8 +444,8 @@ static int launch(const void* q, const void* k, const void* v, const int* cur, v
   err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const __nv_bfloat16*>(q),
                            static_cast<const __nv_bfloat16*>(k),
                            static_cast<const __nv_bfloat16*>(v), cur,
-                           static_cast<__nv_bfloat16*>(o), t_len, n_heads, n_kv_heads, chunk,
-                           scale);
+                           static_cast<__nv_bfloat16*>(o), lse, t_len, n_heads, n_kv_heads,
+                           chunk, scale);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -437,13 +454,15 @@ static int launch(const void* q, const void* k, const void* v, const int* cur, v
 }  // namespace repro_torch
 
 // q (B,H,D), k/v caches (B,T,K,D), cur (B,) int32, o (B,H,D), all
-// contiguous bf16 and 16-byte aligned; D 64, 128, 160 or 256; H / K <= 16;
+// contiguous bf16 and 16-byte aligned; lse (B,H) f32 or null; D 64, 128,
+// 160 or 256; H / K <= 16;
 // 1 <= splits <= 8 slices of chunk positions (a multiple of 64) covering T.
 // Returns the launch's error, else cudaGetLastError().
 extern "C" int repro_torch_flash_decode_cluster(const void* q, const void* k, const void* v,
-                                                const void* cur, void* o, int b, int t_len,
-                                                int n_heads, int n_kv_heads, int d_head,
-                                                int splits, int chunk, void* stream) {
+                                                const void* cur, void* o, void* lse, int b,
+                                                int t_len, int n_heads, int n_kv_heads,
+                                                int d_head, int splits, int chunk,
+                                                void* stream) {
   using namespace repro_torch::fd_cluster;
   if (n_kv_heads < 1 || n_heads % n_kv_heads || n_heads / n_kv_heads > kMaxGroup ||
       splits < 1 || splits > kMaxSplits || chunk < 1 || chunk % kTile ||
@@ -451,13 +470,14 @@ extern "C" int repro_torch_flash_decode_cluster(const void* q, const void* k, co
     return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   const int* c = static_cast<const int*>(cur);
+  float* l = static_cast<float*>(lse);
   if (d_head == 64)
-    return launch<64>(q, k, v, c, o, b, t_len, n_heads, n_kv_heads, splits, chunk, st);
+    return launch<64>(q, k, v, c, o, l, b, t_len, n_heads, n_kv_heads, splits, chunk, st);
   if (d_head == 128)
-    return launch<128>(q, k, v, c, o, b, t_len, n_heads, n_kv_heads, splits, chunk, st);
+    return launch<128>(q, k, v, c, o, l, b, t_len, n_heads, n_kv_heads, splits, chunk, st);
   if (d_head == 160)
-    return launch<160>(q, k, v, c, o, b, t_len, n_heads, n_kv_heads, splits, chunk, st);
+    return launch<160>(q, k, v, c, o, l, b, t_len, n_heads, n_kv_heads, splits, chunk, st);
   if (d_head == 256)
-    return launch<256>(q, k, v, c, o, b, t_len, n_heads, n_kv_heads, splits, chunk, st);
+    return launch<256>(q, k, v, c, o, l, b, t_len, n_heads, n_kv_heads, splits, chunk, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -8,12 +8,31 @@ current stream and checks ``cudaGetLastError``; ``LAUNCHES`` counts the
 kernel launches only, so a run can prove its main path went through the
 kernels, and ``ENTRY_LAUNCHES`` splits them by the C entry point that a
 wrapper with two kernels routed them to.
+
+A DTensor (a tensor laid out on a device mesh, :mod:`repro_torch.
+sharding.specs`) reaches K4, K5 and K6 through ``local_shards``: the
+inputs are redistributed to the kernel's layout (``_kernel_placements``:
+the batch split over the data dims, heads or width over ``model`` where
+they divide it, every other dim whole) and the kernel runs on each
+rank's local shards, launching as above on the card; ``LAUNCHES`` counts
+those local launches.  A decode cache whose positions are split over
+``model`` (``cache_pspecs``) stays split: K6 runs on each rank's slice
+of positions and the partial outputs are combined by their log-sum-exps.
+
+On the meta device (the dry run) K4, K5 and K6 run as the custom ops
+``torch.ops.repro_torch.*``, whose fake implementations give outputs of
+the right shape and dtype and compute nothing, and whose FLOPs are in
+``torch.utils.flop_counter``'s registry.  The card and the CPU call the
+wrappers directly: a custom op's dispatch costs about 20 µs of host time
+a call, more than a decode kernel takes.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import ref
 
@@ -45,16 +64,116 @@ def reset_launch_counts() -> None:
     ENTRY_LAUNCHES.clear()
 
 
-def _on_cpu(name: str, *tensors: torch.Tensor) -> bool:
+def _device_type(name: str, *tensors: torch.Tensor) -> str:
+    """``"cpu"`` (the plain version), ``"cuda"`` (the kernel) or
+    ``"meta"`` (shapes only) for plain tensors on one device."""
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"{name}: tensors on several devices {sorted(map(str, devices))}")
     dev = devices.pop()
-    if dev.type == "cpu":
-        return True
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"{name}: no kernel for device {dev}")
-    return False
+    return dev.type
+
+
+def _on_cpu(name: str, *tensors: torch.Tensor) -> bool:
+    """The route of a wrapper with no meta path: the plain version on the
+    CPU, else the kernel on the card."""
+    where = _device_type(name, *tensors)
+    if where == "meta":
+        raise ValueError(f"{name}: no kernel for device meta")
+    return where == "cpu"
+
+
+# ------------------------------------------------------------ DTensor
+
+
+def _is_dtensor(*tensors) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return any(isinstance(t, DTensor) for t in tensors)
+
+
+def _kernel_placements(mesh, batch: int, split_dim, splits: tuple, batch_dim: int = 0) -> tuple:
+    """One operand's placements for a kernel on local shards: dim
+    ``batch_dim`` (the batch, of ``batch`` rows; None: none) ``Shard`` on
+    the data dims (``pod``, ``data``) when it divides them, dim
+    ``split_dim`` ``Shard`` on ``model`` when every size in ``splits``
+    divides it (``split_dim`` None: never), everything else replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names, sizes = tuple(mesh.mesh_dim_names or ()), tuple(mesh.shape)
+    out = [Replicate()] * len(names)
+    dp = [i for i, n in enumerate(names) if n in ("pod", "data")]
+    dp_size = 1
+    for i in dp:
+        dp_size *= sizes[i]
+    if dp and batch_dim is not None and batch % dp_size == 0:
+        for i in dp:
+            out[i] = Shard(batch_dim)
+    if split_dim is not None and "model" in names:
+        m = names.index("model")
+        if all(n % sizes[m] == 0 for n in splits):
+            out[m] = Shard(split_dim)
+    # a mesh dim of size 1 splits nothing: Replicate, the same layout
+    return tuple(Replicate() if sizes[i] == 1 else p for i, p in enumerate(out))
+
+
+def _as_dtensor(x, mesh):
+    """A plain tensor as a DTensor replicated on ``mesh`` (a constant made
+    inside the model meets a laid-out operand)."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if isinstance(x, DTensor) or not isinstance(x, torch.Tensor):
+        return x
+    return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+
+def _mesh_of(*tensors):
+    from torch.distributed.tensor import DTensor
+
+    return next(t.device_mesh for t in tensors if isinstance(t, DTensor))
+
+
+def _local_map(fn, mesh, out_pl, in_pl, *args, in_grad=None):
+    """``fn`` on each rank's local shards of ``args`` (plain tensors made
+    replicated DTensors first), redistributed to ``in_pl``; the outputs
+    laid out by ``out_pl``; the inputs' gradients by ``in_grad`` (default
+    ``in_pl``: right for every input split like the batch, wrong for a
+    weight replicated across it, whose local gradient is a partial sum)."""
+    from torch.distributed.tensor.experimental import local_map
+
+    args = tuple(_as_dtensor(a, mesh) for a in args)
+    # one output's placements go as a list (a tuple is one entry an output)
+    out_pl = list(out_pl) if not isinstance(out_pl[0], tuple) else out_pl
+    return local_map(fn, out_placements=out_pl, in_placements=in_pl,
+                     in_grad_placements=in_grad, device_mesh=mesh,
+                     redistribute_inputs=True)(*args)
+
+
+def local_shards(layout):
+    """Decorator for a function whose rows (and heads or channels) are
+    independent: on plain tensors it runs as it is; where an argument is a
+    DTensor it runs on each rank's local shards (``local_map``).
+    ``layout(mesh, *args)`` returns ``(out_placements, in_placements,
+    in_grad_placements, args)``: the placements of the outputs, of the
+    leading tensor arguments (the rest, such as a window, pass through),
+    of those arguments' gradients (None: as ``in_placements``), and the
+    arguments to map, which the layout may reshape first.  Keyword
+    arguments go to every local call."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapped(*args, **kw):
+            if not _is_dtensor(*args):
+                return fn(*args, **kw)
+            mesh = _mesh_of(*args)
+            out_pl, in_pl, in_grad, args = layout(mesh, *args)
+            rest = (None,) * (len(args) - len(in_pl))
+            in_grad = None if in_grad is None else tuple(in_grad) + rest
+            return _local_map(lambda *a: fn(*a, **kw), mesh, out_pl, tuple(in_pl) + rest,
+                              *args, in_grad=in_grad)
+        return wrapped
+    return deco
 
 
 def _check_cuda(name: str, floats, heads: int, kv_heads: int, d: int,
@@ -97,6 +216,14 @@ def _attention_kernel(dtype: torch.dtype, d: int, group: int) -> str:
     return "cuda_core"
 
 
+def _attention_layout(mesh, q, k, v):
+    """Heads over ``model`` only where both q's and k/v's divide it, so
+    that every shard holds whole groups."""
+    pl = _kernel_placements(mesh, q.shape[0], 2, (q.shape[2], k.shape[2]))
+    return pl, (pl, pl, pl), None, (q, k, v)
+
+
+@local_shards(_attention_layout)
 def flash_attention(q, k, v, causal: bool = True):
     """q: (B,S,H,D); k, v: (B,T,K,D) with H % K == 0.  Returns (B,S,H,D).
     Any S and T: the kernels mask the ragged edges themselves.  On the
@@ -107,7 +234,10 @@ def flash_attention(q, k, v, causal: bool = True):
     t, kh = k.shape[1], k.shape[2]
     if k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} vs k {tuple(k.shape)}")
-    if _on_cpu("flash_attention", q, k, v):
+    where = _device_type("flash_attention", q, k, v)
+    if where == "meta":
+        return torch.ops.repro_torch.flash_attention(q, k, v, causal)
+    if where == "cpu":
         return ref.flash_attention(q, k, v, causal)
     code = _check_cuda("flash_attention", (q, k, v), h, kh, d)
     if t == 0:
@@ -153,20 +283,74 @@ def flash_decode(q, k_cache, v_cache, cur_index):
     """q: (B,H,D); caches: (B,T,K,D); cur_index: (B,) int32 >= 0.
     Attends to cache positions <= cur_index[b]; cur_index[b] >= T attends
     the whole cache.  Returns (B,H,D).  On the card, ``_decode_kernel``
-    picks the kernel from dtype and D: head dim 256 only in bf16."""
+    picks the kernel from dtype and D: head dim 256 only in bf16.  The
+    kernels also give each row's log-sum-exp (``_decode``), by which a
+    cache split over positions combines its slices."""
     if q.dim() != 3 or k_cache.dim() != 4 or k_cache.shape != v_cache.shape:
         raise ValueError(
             f"flash_decode: shapes {q.shape}, {k_cache.shape}, {v_cache.shape}"
         )
     b, h, d = q.shape
-    t, kh = k_cache.shape[1], k_cache.shape[2]
     if k_cache.shape[0] != b or k_cache.shape[3] != d or cur_index.shape != (b,):
         raise ValueError(
             f"flash_decode: q {tuple(q.shape)}, cache {tuple(k_cache.shape)}, "
             f"cur {tuple(cur_index.shape)}"
         )
-    if _on_cpu("flash_decode", q, k_cache, v_cache, cur_index):
-        return ref.flash_decode(q, k_cache, v_cache, cur_index)
+    if _is_dtensor(q, k_cache, v_cache, cur_index):
+        return _decode_dtensor(q, k_cache, v_cache, cur_index)
+    return _decode(q, k_cache, v_cache, cur_index)[0]
+
+
+def _decode_dtensor(q, k_cache, v_cache, cur_index):
+    """``_decode`` on DTensors.  A cache whose positions are split over
+    ``model`` (``cache_pspecs``'s layout) stays so: each rank runs the
+    kernel on its slice of positions (the query and ``cur`` whole on
+    ``model``), a slice wholly past ``cur`` weighs nothing, and the
+    slices' outputs are combined by their log-sum-exps, sums of (B,H,D)
+    and (B,H) over ``model``.  Any other cache runs on the kernel's own
+    layout (heads over ``model`` where q's and the cache's divide it)."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    mesh = _mesh_of(q, k_cache, v_cache, cur_index)
+    names = tuple(mesh.mesh_dim_names or ())
+    b, h, kh = q.shape[0], q.shape[1], k_cache.shape[2]
+    rows = _kernel_placements(mesh, b, None, ())
+    m = names.index("model") if "model" in names else None
+    if m is None or not isinstance(k_cache, DTensor) or k_cache.placements[m] != Shard(1):
+        qp = _kernel_placements(mesh, b, 1, (h, kh))
+        cp = _kernel_placements(mesh, b, 2, (h, kh))
+        return _local_map(lambda *a: _decode(*a)[0], mesh, qp, (qp, cp, cp, rows),
+                          q, k_cache, v_cache, cur_index)
+    cp = tuple(Shard(1) if i == m else p for i, p in enumerate(rows))
+    # one partial a slice, stacked on a new leading dim split over ``model``
+    parts = tuple(Shard(0) if i == m else Shard(p.dim + 1) if p.is_shard() else p
+                  for i, p in enumerate(rows))
+    off = mesh.get_local_rank(m) * (k_cache.shape[1] // mesh.shape[m])
+
+    def part(q, k, v, cur):
+        out, lse = _decode(q, k, v, (cur - off).clamp(min=0).to(torch.int32))
+        lse = torch.where(cur[:, None] < off, float("-inf"), lse)
+        return out[None], lse[None]
+
+    out, lse = _local_map(part, mesh, (parts, parts), (rows, cp, cp, rows),
+                          q, k_cache, v_cache, cur_index)
+    top = lse.amax(0)
+    w = torch.exp(lse - top)
+    den = w.sum(0)
+    return ((out.float() * w[..., None]).sum(0) / den[..., None]).to(q.dtype)
+
+
+def _decode(q, k_cache, v_cache, cur_index):
+    """``flash_decode`` on plain tensors: ``(out, lse)``, lse (B,H) f32
+    each row's log-sum-exp of its scaled scores over the positions it
+    attends (``torch.ops.repro_torch.flash_decode`` on every device)."""
+    b, h, d = q.shape
+    t, kh = k_cache.shape[1], k_cache.shape[2]
+    where = _device_type("flash_decode", q, k_cache, v_cache, cur_index)
+    if where == "meta":
+        return torch.ops.repro_torch.flash_decode(q, k_cache, v_cache, cur_index)
+    if where == "cpu":
+        return ref.flash_decode(q, k_cache, v_cache, cur_index, return_lse=True)
     route = _decode_kernel(q.dtype, d)
     code = _check_cuda("flash_decode", (q, k_cache, v_cache), h, kh, d,
                        max(_CLUSTER_HEAD_DIMS) if route == "cluster" else _MAX_HEAD_DIM)
@@ -177,10 +361,11 @@ def flash_decode(q, k_cache, v_cache, cur_index):
     if t == 0:
         raise ValueError("flash_decode: empty cache")
     out = torch.empty_like(q)
+    lse = torch.empty(b, h, dtype=torch.float32, device=q.device)
     if out.numel() == 0:
-        return out
+        return out, lse
     ptrs = (q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), cur_index.data_ptr(),
-            out.data_ptr(), b, t, h, kh, d)
+            out.data_ptr(), lse.data_ptr(), b, t, h, kh, d)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         if route == "cluster":
@@ -191,7 +376,7 @@ def flash_decode(q, k_cache, v_cache, cur_index):
                     *_decode_splits(b, kh, t, sms), stream)
         else:
             _launch("flash_decode", "repro_torch_flash_decode", *ptrs, code, stream)
-    return out
+    return out, lse
 
 
 def csr_dot(indices, values, w, *, block_b: int = 8, gather: str = "take"):
@@ -396,11 +581,24 @@ def _scan_launch(name, lanes_fn, ring_fn, ins, outs):
             _launch(name, lanes_fn, *ptrs, b, t, w, stream)
 
 
+def _scan_layout(outputs: int):
+    """The scans' layout: the batch over the data dims, the width over
+    ``model`` where it divides it, time whole."""
+    def layout(mesh, *ts):
+        pl = _kernel_placements(mesh, ts[0].shape[0], 2, (ts[0].shape[2],))
+        return (pl if outputs == 1 else (pl,) * outputs), (pl,) * len(ts), None, ts
+    return layout
+
+
+@local_shards(_scan_layout(1))
 def rglru_scan(a, x):
     """The RG-LRU recurrence ``h_t = a_t·h_{t-1} + x_t`` over axis 1 from
     ``h_{-1} = 0``: a, x (B,T,W), cast to f32; returns h (B,T,W) f32."""
     _check_scan_shapes("rglru_scan", a, x)
-    if _on_cpu("rglru_scan", a, x):
+    where = _device_type("rglru_scan", a, x)
+    if where == "meta":
+        return torch.ops.repro_torch.rglru_scan(a, x)
+    if where == "cpu":
         return ref.rglru_scan(a, x)
     a, x = a.float().contiguous(), x.float().contiguous()
     h = torch.empty_like(x)
@@ -409,13 +607,17 @@ def rglru_scan(a, x):
     return h
 
 
+@local_shards(_scan_layout(2))
 def rglru_scan_bwd(a, h, dh):
     """The scan's gradient: from the forward's ``a`` and ``h`` and the
     output gradient ``dh`` (all (B,T,W)), returns ``(dx, da)`` in f32:
     ``g_t = dh_t + a_{t+1}·g_{t+1}`` from the last step, ``dx_t = g_t``,
     ``da_t = g_t·h_{t-1}``."""
     _check_scan_shapes("rglru_scan_bwd", a, h, dh)
-    if _on_cpu("rglru_scan_bwd", a, h, dh):
+    where = _device_type("rglru_scan_bwd", a, h, dh)
+    if where == "meta":
+        return torch.ops.repro_torch.rglru_scan_bwd(a, h, dh)
+    if where == "cpu":
         return ref.rglru_scan_bwd(a, h, dh)
     a, h, dh = (t.float().contiguous() for t in (a, h, dh))
     dx, da = torch.empty_like(dh), torch.empty_like(dh)
@@ -442,3 +644,82 @@ class RGLRUScan(torch.autograd.Function):
         a, h = ctx.saved_tensors
         dx, da = rglru_scan_bwd(a, h, dh)
         return da.to(a.dtype), dx.to(ctx.x_dtype)
+
+
+# ------------------------------------------------ custom ops (meta device)
+# K4, K5 and K6 as ``torch.ops.repro_torch.*``: on the meta device their
+# fake implementations run, and a dispatch trace (the dry run's recorder,
+# ``launch.comm_stats``) sees one op with the FLOPs registered here and the
+# bytes of its inputs and outputs.  On the CPU and the card the op calls
+# the wrapper.
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
+                         schema="(Tensor q, Tensor k, Tensor v, bool causal) -> Tensor")
+def _flash_attention_op(q, k, v, causal):
+    return flash_attention(q, k, v, causal)
+
+
+@_flash_attention_op.register_fake
+def _(q, k, v, causal):
+    return torch.empty_like(q)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _(q_shape, k_shape, v_shape, causal, *args, out_shape=None, **kwargs) -> int:
+    b, s, h, d = q_shape
+    t = k_shape[1]
+    m = min(s, t)  # causal: query i attends min(i + 1, t) keys
+    pairs = m * (m + 1) // 2 + (s - m) * t if causal else s * t
+    return 4 * b * h * d * pairs
+
+
+@torch.library.custom_op("repro_torch::flash_decode", mutates_args=(),
+                         schema="(Tensor q, Tensor k, Tensor v, Tensor cur) -> (Tensor, Tensor)")
+def _flash_decode_op(q, k_cache, v_cache, cur_index):
+    return _decode(q, k_cache, v_cache, cur_index)
+
+
+@_flash_decode_op.register_fake
+def _(q, k_cache, v_cache, cur_index):
+    return torch.empty_like(q), q.new_empty(q.shape[:2], dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_decode)
+def _(q_shape, k_shape, v_shape, cur_shape, *args, out_shape=None, **kwargs) -> int:
+    b, h, d = q_shape
+    return 4 * b * h * d * k_shape[1]
+
+
+@torch.library.custom_op("repro_torch::rglru_scan", mutates_args=(),
+                         schema="(Tensor a, Tensor x) -> Tensor")
+def _rglru_scan_op(a, x):
+    return rglru_scan(a, x)
+
+
+@_rglru_scan_op.register_fake
+def _(a, x):
+    return x.new_empty(x.shape, dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.repro_torch.rglru_scan)
+def _(a_shape, x_shape, *args, out_shape=None, **kwargs) -> int:
+    b, t, w = x_shape
+    return 2 * b * t * w
+
+
+@torch.library.custom_op("repro_torch::rglru_scan_bwd", mutates_args=(),
+                         schema="(Tensor a, Tensor h, Tensor dh) -> (Tensor, Tensor)")
+def _rglru_scan_bwd_op(a, h, dh):
+    return rglru_scan_bwd(a, h, dh)
+
+
+@_rglru_scan_bwd_op.register_fake
+def _(a, h, dh):
+    return dh.new_empty(dh.shape, dtype=torch.float32), dh.new_empty(dh.shape, dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.repro_torch.rglru_scan_bwd)
+def _(a_shape, h_shape, dh_shape, *args, out_shape=None, **kwargs) -> int:
+    b, t, w = dh_shape
+    return 3 * b * t * w

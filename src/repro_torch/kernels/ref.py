@@ -78,27 +78,34 @@ def edge_probe(q_shape, kv_shape, dtype, generator):
     return q.to(dtype), k.to(dtype), v.to(dtype)
 
 
-def _grouped_sdpa(q, k, v, mask):
+def _grouped_sdpa(q, k, v, mask, with_lse: bool = False):
     """Grouped path: caches stay at K heads.  mask broadcastable to
-    (B,K,G,S,T)."""
+    (B,K,G,S,T).  With ``with_lse`` also the scores' log-sum-exp
+    (B,S,H) in f32."""
     b, s, h, d = q.shape
     kheads = k.shape[2]
     qg = q.reshape(b, s, kheads, h // kheads, d)
     scores = torch.einsum("bskgd,btkd->bkgst", qg, k).float() / math.sqrt(d)
     scores = torch.where(mask, scores, NEG_INF)
     w = torch.softmax(scores, dim=-1).to(q.dtype)
-    o = torch.einsum("bkgst,btkd->bskgd", w, v)
-    return o.reshape(b, s, h, d)
+    o = torch.einsum("bkgst,btkd->bskgd", w, v).reshape(b, s, h, d)
+    if not with_lse:
+        return o
+    lse = torch.logsumexp(scores, dim=-1).permute(0, 3, 1, 2).reshape(b, s, h)
+    return o, lse
 
 
-def flash_decode(q, k_cache, v_cache, cur_index):
+def flash_decode(q, k_cache, v_cache, cur_index, return_lse: bool = False):
     """q: (B,H,D); caches: (B,T,K,D); attends to positions <= cur_index[b]
-    (every position when cur_index[b] >= T).  Returns (B,H,D)."""
+    (every position when cur_index[b] >= T).  Returns (B,H,D), with
+    ``return_lse`` also the log-sum-exp (B,H) f32 of each row's scaled
+    scores over the positions it attends."""
     t = k_cache.shape[1]
     cur = cur_index.reshape(-1, 1)
     pos = torch.arange(t, device=q.device)[None, :]
     mask = (pos <= cur)[:, None, None, None, :]  # (B,1,1,1,T)
-    return _grouped_sdpa(q[:, None], k_cache, v_cache, mask)[:, 0]
+    out, lse = _grouped_sdpa(q[:, None], k_cache, v_cache, mask, with_lse=True)
+    return (out[:, 0], lse[:, 0]) if return_lse else out[:, 0]
 
 
 def csr_dot(indices, values, w):

@@ -1,20 +1,110 @@
-"""The CPU process mesh: the multi-*host* substrate of the distributed
-clairvoyant I/O tier (:mod:`repro_torch.prefetch.distributed`).
+"""Device meshes, and the CPU process mesh.
 
-Each OS process is one "host" running its own record store, cache and
-peer server, talking TCP to the others
-(:mod:`repro_torch.prefetch.transport`).  No device, no shared memory:
-what a real multi-node launch of the data plane looks like, minus the
-cluster scheduler.  This is the port of the process-mesh half of
-``repro.launch.mesh``; its device meshes (XLA's ``("data", "model")``
-meshes) have no counterpart here yet.
+The device meshes are the port of ``repro.launch.mesh``'s XLA meshes:
+``torch.distributed`` ``DeviceMesh`` objects whose dims carry the JAX
+axis names, so the spec rules (:mod:`repro_torch.sharding.specs`) name
+them alike.
+
+- ``make_production_mesh``: single pod 16×16 = 256 ranks, dims
+  ``("data", "model")``; multi-pod 2×16×16 = 512 ranks, ``("pod",
+  "data", "model")``, the pod dim pure data parallelism.  It runs over
+  PyTorch's fake backend (``FakeStore``, 512 ranks, this process rank 0),
+  the counterpart of JAX's 512 forced host devices; the single-pod mesh
+  takes the first 256 ranks.  The fake backend's collectives return no
+  real data: the mesh is for meta tensors and counting only (the dry
+  run, :mod:`repro_torch.launch.dryrun`).
+- ``make_host_mesh``: a small mesh over the default process group (tests
+  and the card).
+
+Functions, not module constants: importing this module touches no
+process group.
+
+The CPU process mesh is the multi-*host* substrate of the distributed
+clairvoyant I/O tier (:mod:`repro_torch.prefetch.distributed`).  Each OS
+process is one "host" running its own record store, cache and peer
+server, talking TCP to the others (:mod:`repro_torch.prefetch.transport`).
+No device, no shared memory: what a real multi-node launch of the data
+plane looks like, minus the cluster scheduler.
 """
 from __future__ import annotations
 
+import math
 import multiprocessing
 import queue as _queue
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Sequence
+
+PRODUCTION_RANKS = 512  # the fake group's world: the multi-pod mesh's ranks
+
+
+def _fake_group() -> None:
+    """This process as rank 0 of the fake PRODUCTION_RANKS-rank group,
+    unless that group is up already."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        if dist.get_world_size() != PRODUCTION_RANKS:
+            raise RuntimeError(f"a process group of {dist.get_world_size()} ranks is up; the "
+                               f"production meshes need the fake group of {PRODUCTION_RANKS}")
+        return
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=PRODUCTION_RANKS)
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The (16, 16) ``("data", "model")`` mesh, or with ``multi_pod`` the
+    (2, 16, 16) ``("pod", "data", "model")`` mesh, over the fake 512-rank
+    group (started here if none is up).  Its device type is the CPU's,
+    and the tensors laid out on it live on the meta device."""
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    _fake_group()
+    need = math.prod(shape)
+    return DeviceMesh("cpu", torch.arange(need).reshape(shape), mesh_dim_names=axes)
+
+
+def make_host_mesh(data: int = 1, model: int = 1, device: str = "cuda"):
+    """A ``(data, model)`` mesh over the default process group, its ranks
+    in order.  With no group up and ``data·model == 1``, this starts a
+    one-rank group: ``nccl`` for ``device="cuda"``, ``gloo`` for
+    ``device="cpu"``."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    need = data * model
+    if not dist.is_initialized():
+        if need != 1:
+            raise RuntimeError(f"a ({data}, {model}) mesh needs a process group of {need} ranks")
+        port = _free_port()
+        dist.init_process_group("nccl" if device == "cuda" else "gloo",
+                                init_method=f"tcp://localhost:{port}", rank=0, world_size=1)
+    if dist.get_world_size() < need:
+        raise RuntimeError(f"a ({data}, {model}) mesh needs {need} ranks, "
+                           f"the group has {dist.get_world_size()}")
+    return DeviceMesh(device, torch.arange(need).reshape(data, model),
+                      mesh_dim_names=("data", "model"))
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def dp_axes(mesh) -> tuple:
+    """The mesh's data-parallel dims: ``pod`` and ``data``, in order."""
+    return tuple(a for a in mesh.mesh_dim_names if a in ("pod", "data"))
+
+
+# --------------------------------------------------------------------------
+# The CPU process mesh.
+# --------------------------------------------------------------------------
 
 _MESH_FAILED = "__cpu_mesh_round_failed__"
 

@@ -11,7 +11,8 @@ the CPU.  They have no backward.  Training differentiates
 plain torch products as the JAX package's training path computes them in
 jnp outside any Pallas kernel, on the masked ``sdpa`` of
 :mod:`repro_torch.layers.sdpa`; with ``ckpt`` their work between the
-products is a remat segment (``common.segment``).
+products is a remat segment (``common.segment``).  On DTensors they run
+on each rank's shards of rows and heads (``_per_head``).
 """
 from __future__ import annotations
 
@@ -20,8 +21,34 @@ import math
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.layers.common import cast, dense_init, segment
-from repro_torch.layers.sdpa import NEG_INF, _expand_kv, sdpa, softmax_weights
+from repro_torch.layers.common import cast, dense_init, flatten, segment, unflatten
+from repro_torch.layers.sdpa import NEG_INF, _expand_kv, softmax_weights
+from repro_torch.layers.sdpa import sdpa as _sdpa
+
+
+def _head_layout(mesh, q, k, v, *rest):
+    """An attention whose rows and heads are independent, on each rank's
+    local shards (as the kernels run): the batch split over the data
+    dims, the heads over ``model`` where they divide it, the sequence
+    whole.  Where q's heads divide ``model`` and k/v's do not, k and v are
+    first expanded to q's heads (as ``sdpa`` expands them), so that every
+    shard holds its heads' own keys.  DTensor's own propagation through
+    the products' flattening has no rule for some of those splits (torch
+    2.11: a flatten of two split dims)."""
+    h, kh = q.shape[2], k.shape[2]
+    if h != kh and ops._kernel_placements(mesh, 1, 2, (h,)) != \
+            ops._kernel_placements(mesh, 1, 2, (h, kh)):
+        b, t, _, d = k.shape
+        k, v = (x[:, :, :, None].expand(b, t, kh, h // kh, d).reshape(b, t, h, d)
+                for x in (k, v))
+    pl = ops._kernel_placements(mesh, q.shape[0], 2, (q.shape[2], k.shape[2]))
+    return pl, (pl, pl, pl), None, (q, k, v, *rest)
+
+
+_per_head = ops.local_shards(_head_layout)
+
+
+sdpa = _per_head(_sdpa)
 
 
 def init_attn(generator, d_model: int, num_heads: int, num_kv_heads: int,
@@ -37,7 +64,7 @@ def init_attn(generator, d_model: int, num_heads: int, num_kv_heads: int,
 def project(x: torch.Tensor, w: torch.Tensor, dtype) -> torch.Tensor:
     """einsum('bsd,dhk->bshk') as one matrix product."""
     d, h, k = w.shape
-    return (x @ cast(w.reshape(d, h * k), dtype)).unflatten(-1, (h, k))
+    return unflatten(x @ cast(w.reshape(d, h * k), dtype), -1, (h, k))
 
 
 def qkv(params, x: torch.Tensor, dtype):
@@ -51,7 +78,7 @@ def qkv(params, x: torch.Tensor, dtype):
 def out_proj(params, o: torch.Tensor, dtype) -> torch.Tensor:
     """einsum('bshk,hkd->bsd')."""
     h, k, d = params["wo"].shape
-    return o.flatten(-2) @ cast(params["wo"].reshape(h * k, d), dtype)
+    return flatten(o, -2, -1) @ cast(params["wo"].reshape(h * k, d), dtype)
 
 
 def full_attention(q, k, v, causal: bool = True):
@@ -84,6 +111,7 @@ def causal_mask(s: int, t=None, offset: int = 0, device=None) -> torch.Tensor:
     return (kpos <= qpos)[None, None]
 
 
+@_per_head
 def causal_attention(q, k, v, ckpt: bool = False):
     """Causal attention through the masked ``sdpa`` (differentiable; the
     training path of the ``attn`` kind)."""
@@ -117,6 +145,7 @@ def _normalise(acc, l, dtype):
     return (acc / l.clamp(min=1e-30)[..., None]).to(dtype)
 
 
+@_per_head
 def blocked_attention(q, k, v, block: int = 1024, ckpt: bool = False):
     """Flash-style causal attention as the JAX package computes it: per
     query block, an online softmax over key blocks (scores in the input
@@ -149,6 +178,7 @@ def blocked_attention(q, k, v, block: int = 1024, ckpt: bool = False):
     return torch.cat(outs, dim=1)
 
 
+@_per_head
 def local_attention(q, k, v, window: int, ckpt: bool = False):
     """Chunked sliding-window attention: O(S·w) instead of O(S²).  Up to
     ``window`` positions it is the masked ``sdpa``; past that, S must be a

@@ -26,7 +26,7 @@ import math
 
 import torch
 
-from repro_torch.layers.common import activation_fn, cast, dense_init, segment
+from repro_torch.layers.common import replicate_dims, activation_fn, cast, dense_init, segment
 from repro_torch.layers.mlp import gated
 from repro_torch.models.config import ModelConfig, MoEConfig
 
@@ -104,12 +104,15 @@ def apply_moe_dense(params, x, cfg: ModelConfig, moe: MoEConfig, dtype, ckpt: bo
     cap = _capacity(moe, s)
     gate, ids, aux = _router(params, x, moe, ckpt)
     dispatch, combine = segment(ckpt, _dispatch_combine, gate, ids, moe.num_experts, cap, dtype)
-    xin = torch.einsum("bsec,bsd->ebcd", dispatch, x)  # (E,B,C,d)
+    # DTensor operands keep only their batch split: einsum's flattening of
+    # (S, E, C) has no sharding rule for a split those dims do not divide
+    dispatch, combine, x = (replicate_dims(t, *range(1, t.dim())) for t in (dispatch, combine, x))
+    xin = replicate_dims(torch.einsum("bsec,bsd->ebcd", dispatch, x), 2, 3)  # (E,B,C,d)
     h = torch.einsum("ebcd,edf->ebcf", xin, cast(params["w_in"], dtype))
     gt = torch.einsum("ebcd,edf->ebcf", xin, cast(params["w_gate"], dtype))
     h = segment(ckpt, gated, activation_fn(cfg.activation), gt, h)
-    yout = torch.einsum("ebcf,efd->ebcd", h, cast(params["w_out"], dtype))
-    y = torch.einsum("ebcd,bsec->bsd", yout, combine)
+    yout = replicate_dims(torch.einsum("ebcf,efd->ebcd", h, cast(params["w_out"], dtype)), 2, 3)
+    y = replicate_dims(torch.einsum("ebcd,bsec->bsd", yout, combine), 1, 2)
     if "shared" in params:
         y = y + _shared(params["shared"], x, cfg, dtype, ckpt)
     return y.reshape(b0, s0, d0), aux

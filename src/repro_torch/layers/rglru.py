@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.layers.common import activation_fn, cast, dense_init, segment
+from repro_torch.layers.common import activation_fn, cast, dense_init, replicate_dims, segment
 
 C_CONST = 8.0
 
@@ -53,8 +53,11 @@ def _block_diag(u: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     b, s, width = u.shape
     h = w.shape[0]
     dt = torch.promote_types(u.dtype, w.dtype)
-    ub = u.to(dt).reshape(b, s, h, width // h)
-    return torch.einsum("bshw,hwv->bshv", ub, cast(w, dt)).reshape(b, s, width)
+    # a DTensor's width is made whole: its head split has no sharding rule
+    # where the heads do not divide the mesh dim
+    ub = replicate_dims(replicate_dims(u, 2).to(dt).reshape(b, s, h, width // h), 2, 3)
+    out = torch.einsum("bshw,hwv->bshv", ub, cast(w, dt))
+    return replicate_dims(replicate_dims(out, 2, 3).reshape(b, s, width), 2)
 
 
 def _causal_conv(u: torch.Tensor, conv_w: torch.Tensor, conv_b: torch.Tensor, dtype,

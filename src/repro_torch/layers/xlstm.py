@@ -29,7 +29,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.layers.common import cast, dense_init, segment
+from repro_torch.kernels import ops
+
+from repro_torch.layers.common import cast, dense_init, flatten, segment, unflatten
 
 SENTINEL = -1e30  # the stabilisers' start (m), f32 everywhere
 
@@ -75,14 +77,20 @@ def _mlstm_qkv(params, x, num_heads: int, dtype):
     gate = F.silu(x @ cast(params["w_gate_up"], dtype))
     b, s, dp = u.shape
     hd = dp // num_heads
-    uh = u.reshape(b, s, num_heads, hd)
+    uh = unflatten(u, -1, (num_heads, hd))
     q, k, v = (torch.einsum("bshd,hde->bhse", uh, cast(params[w], dtype))
                for w in ("wq", "wk", "wv"))
     # JAX divides by sqrt(hd) rounded to the compute dtype
     k = k / float(torch.tensor(float(hd)).sqrt().to(dtype))
     gates = (x @ cast(params["w_if"], dtype) + params["b_if"]).float().transpose(1, 2)
-    log_i, log_f = gates[:, :num_heads], F.logsigmoid(gates[:, num_heads:])
+    log_i, log_f = gates[:, :num_heads], _log_sigmoid(gates[:, num_heads:])
     return u, gate, q, k, v, log_i, log_f
+
+
+def _log_sigmoid(x):
+    """``log σ(x)`` as JAX's ``-softplus(-x)``, ``-logaddexp(0, -x)`` (which
+    DTensor also shards, unlike ``log_sigmoid``'s backward)."""
+    return -torch.logaddexp(torch.zeros((), dtype=x.dtype, device=x.device), -x)
 
 
 def _empty_mlstm_state(x, num_heads: int, hd: int):
@@ -140,9 +148,9 @@ def mlstm_chunkwise(params, x: torch.Tensor, num_heads: int, chunk: int, dtype, 
     if s % c:
         raise ValueError(f"sequence {s} is not a multiple of the mLSTM chunk {c}")
     nc = s // c
-    q, k, v = (t.reshape(b, num_heads, nc, c, hd) for t in (q, k, v))
-    li = log_i.reshape(b, num_heads, nc, c)
-    lfc = torch.cumsum(log_f.reshape(b, num_heads, nc, c), dim=-1)  # F_t within chunk, with f_t
+    q, k, v = (unflatten(t, 2, (nc, c)) for t in (q, k, v))
+    li = unflatten(log_i, 2, (nc, c))
+    lfc = torch.cumsum(unflatten(log_f, 2, (nc, c)), dim=-1)  # F_t within chunk, with f_t
     C, n, m = _empty_mlstm_state(x, num_heads, hd) if state is None else state
     lft = lfc[..., -1]
     w_key = lft[..., None] + li - lfc  # log-weight of key s into the next state
@@ -167,7 +175,7 @@ def mlstm_chunkwise(params, x: torch.Tensor, num_heads: int, chunk: int, dtype, 
         n = decay[..., ci, None] * n + kn[:, :, ci]
     h = segment(ckpt, _normalise, intra, p.sum(-1), torch.stack(q_state, dim=2),
                 torch.stack(qn_state, dim=2), state_w, dtype)
-    h = h.reshape(b, num_heads, s, hd).transpose(1, 2).reshape(b, s, -1)
+    h = flatten(flatten(h, 2, 3).transpose(1, 2), 2, 3)
     h = h + u * cast(params["skip"], dtype)
     return (h * gate) @ cast(params["w_down"], dtype), (C, n, ms[-1])
 
@@ -188,7 +196,7 @@ def mlstm_step(params, x: torch.Tensor, state, num_heads: int, dtype):
     num = (qf[..., None, :] @ C)[..., 0, :]
     den = (qf * n).sum(-1)
     one = torch.ones((), dtype=den.dtype, device=den.device)
-    h = (num / torch.maximum(den.abs(), one)[..., None]).to(dtype).reshape(b, 1, -1)
+    h = flatten((num / torch.maximum(den.abs(), one)[..., None]).to(dtype), 1, 2)[:, None]
     h = h + u * cast(params["skip"], dtype)
     return (h * gate) @ cast(params["w_down"], dtype), (C, n, m_next)
 
@@ -299,6 +307,27 @@ class _SLSTMScan(torch.autograd.Function):
         return da, dr2, dc, dn, dm, dh
 
 
+def _scan_layout(mesh, pre, r2, *state):
+    """``_SLSTMScan`` on each rank's rows and heads (the batch over the
+    data dims, the heads over ``model`` where they divide it): every (row,
+    head) runs its own recurrence, and the time loop then dispatches local
+    ops, not DTensor ops."""
+    from torch.distributed.tensor import Partial, Shard
+
+    b, h = pre.shape[2], pre.shape[1]
+    seq = ops._kernel_placements(mesh, b, 1, (h,), batch_dim=2)  # (S, H, B, .)
+    st = ops._kernel_placements(mesh, b, 0, (h,), batch_dim=1)   # (H, B, hd)
+    w = ops._kernel_placements(mesh, b, 0, (h,), batch_dim=None)  # (H, hd, 4 hd)
+    # the weights' gradient on a rank sums its own rows only: partial sums
+    # over the mesh dims that split the batch
+    dw = tuple(Partial() if s == Shard(1) else p for s, p in zip(st, w))
+    return ((seq, st, st, st, st), (seq, w, st, st, st, st), (seq, dw, st, st, st, st),
+            (pre, r2, *state))
+
+
+_scan = ops.local_shards(_scan_layout)(_SLSTMScan.apply)
+
+
 def slstm_scan(params, x: torch.Tensor, num_heads: int, dtype, state=None):
     """x: (B,S,d) -> (y, state), state = (c, n, m, h), each (B,H,hd) in f32.
     The recurrent weights are cast to f32 and the recurrence runs in f32 in
@@ -306,16 +335,16 @@ def slstm_scan(params, x: torch.Tensor, num_heads: int, dtype, state=None):
     b, s, d = x.shape
     hd = d // num_heads
     pre = (x @ cast(params["w_in"], dtype) + params["b"]).float()
-    pre = pre.reshape(b, s, 4, num_heads, hd).permute(1, 3, 0, 2, 4).reshape(s, num_heads, b, -1)
+    pre = flatten(unflatten(pre, -1, (4, num_heads, hd)).permute(1, 3, 0, 2, 4), 3, 4)
     if state is None:
         zeros = x.new_zeros((num_heads, b, hd), dtype=torch.float32)
         state = (zeros, zeros, torch.full_like(zeros, SENTINEL), zeros)
     else:
         state = tuple(t.transpose(0, 1) for t in state)
     r = cast(params["r"], torch.float32)  # (4, H, hd, hd)
-    r2 = r.permute(1, 2, 0, 3).reshape(num_heads, hd, 4 * hd)
-    hs, *state = _SLSTMScan.apply(pre, r2, *state)
-    h = hs.permute(2, 0, 1, 3).reshape(b, s, d).to(dtype)
+    r2 = flatten(r.permute(1, 2, 0, 3), 2, 3)
+    hs, *state = _scan(pre, r2, *state)
+    h = flatten(hs.permute(2, 0, 1, 3), 2, 3).to(dtype)
     return h @ cast(params["w_out"], dtype), tuple(t.transpose(0, 1) for t in state)
 
 

@@ -30,6 +30,12 @@ unknown kind raises ``ValueError``, as in the JAX package.
 In training, ``aux["remat_segments"]`` (``remat="dots"``) runs each
 block's work between its matrix products in remat segments
 (``common.segment``).
+
+With a ``ctx`` (``common.ShardCtx``) holding a mesh, the residual after
+the self-attention of the ``attn``, ``local_attn``, ``enc_attn`` and
+``moe`` kinds is laid out as JAX constrains it: the batch over the data
+dims, and in training with ``sequence_parallel`` the sequence over
+``model`` (Megatron-SP).
 """
 from __future__ import annotations
 
@@ -37,11 +43,12 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from repro_torch.kernels import ops
 from repro_torch.layers import attention as attn
 from repro_torch.layers import moe as moe_lib
 from repro_torch.layers import rglru as rglru_lib
 from repro_torch.layers import xlstm as xlstm_lib
-from repro_torch.layers.common import rms_norm, segment
+from repro_torch.layers.common import rms_norm, segment, whole_op
 from repro_torch.layers.mlp import apply_ffn, init_ffn
 from repro_torch.layers.positional import apply_rope
 from repro_torch.models.config import ModelConfig
@@ -177,8 +184,9 @@ def _self_attention(p, x, cfg: ModelConfig, kind: str, mode: str, cache, pos, au
             w = min(cfg.local_window, s)
             o = attn.local_attention(q, k, v, cfg.local_window)
             roll = (s - w) % w
-            new = {"k": torch.roll(k[:, s - w:], roll, dims=1),
-                   "v": torch.roll(v[:, s - w:], roll, dims=1)}
+            # torch.roll has no DTensor rule in torch 2.11: whole_op
+            new = {key: whole_op(lambda t: torch.roll(t, roll, dims=1), t[:, s - w:])
+                   for key, t in (("k", k), ("v", v))}
         else:
             o = _causal(q, k, v, cfg, mode, False)
             new = {"k": k, "v": v}
@@ -199,14 +207,49 @@ def _self_attention(p, x, cfg: ModelConfig, kind: str, mode: str, cache, pos, au
     # jax.lax.dynamic_update_slice clamps (idle serving slots keep advancing
     # past the arena's end)
     idx = (cur % t if local else cur.clamp(max=t - 1)).long()
-    rows = torch.arange(b, device=x.device)
-    ck[rows, idx] = k[:, 0]
-    cv[rows, idx] = v[:, 0]
+    _write_slots(ck, idx, k[:, 0])
+    _write_slots(cv, idx, v[:, 0])
     if local:
         o = attn.decode_local_attention(q, ck, cv, cur, cfg.local_window)
     else:
         o = attn.decode_attention(q, ck, cv, cur)
     return attn.out_proj(p["attn"], o, dt), cache
+
+
+def _write_slots(cache: torch.Tensor, idx: torch.Tensor, new: torch.Tensor) -> None:
+    """``cache[i, idx[i]] = new[i]`` for every row ``i``, in place.  A
+    DTensor cache (its slots may be split over ``model`` by
+    ``cache_pspecs``) is written on each rank's own shard: DTensor has no
+    in-place rule for the indexed write on a split dim."""
+    if hasattr(cache, "device_mesh"):
+        _write_local_slots(cache, idx, new)
+        return
+    cache[torch.arange(cache.shape[0], device=cache.device), idx] = new
+
+
+def _write_local_slots(cache, idx, new) -> None:
+    """``_write_slots`` on a DTensor cache (B,T,...): ``new`` (B,...) and
+    ``idx`` are laid out as the cache's rows and later dims, whole over
+    its slots; each rank writes the slots of its own slice of T (a rank
+    whose slice misses ``idx[i]`` rewrites a slot with its own value)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh, pl = cache.device_mesh, cache.placements
+    off, span = 0, cache.shape[1]
+    for m, p in enumerate(pl):  # mesh dims major to minor
+        if p == Shard(1):
+            span //= mesh.shape[m]
+            off += mesh.get_local_rank(m) * span
+    new_pl = [Replicate() if p == Shard(1) else Shard(p.dim - 1) if p.is_shard() and p.dim > 1
+              else p for p in pl]
+    idx_pl = [p if p == Shard(0) else Replicate() for p in pl]
+    local = cache.to_local()
+    new = ops._as_dtensor(new, mesh).redistribute(mesh, new_pl).to_local()
+    i = ops._as_dtensor(idx, mesh).redistribute(mesh, idx_pl).to_local() - off
+    hit = ((i >= 0) & (i < span)).reshape(-1, *[1] * (new.dim() - 1))
+    rows = torch.arange(local.shape[0], device=local.device)
+    j = i.clamp(0, span - 1)
+    local[rows, j] = torch.where(hit, new.to(local.dtype), local[rows, j])
 
 
 def _cross_attention(p, x, cfg: ModelConfig, mode: str, cache, aux, ckpt):
@@ -281,6 +324,7 @@ def apply_block(
     cache=None,
     pos: Optional[torch.Tensor] = None,
     aux: Optional[Dict[str, Any]] = None,
+    ctx=None,
 ):
     """Returns ``(x, cache, aux loss)``; the cache is None in train mode,
     the aux loss an f32 scalar for ``moe`` blocks and ``0.0`` for the
@@ -303,6 +347,11 @@ def apply_block(
         self_kind = "attn" if kind == "dec_attn" else kind
         o, new_cache = _self_attention(p, h, cfg, self_kind, mode, cache, pos, aux, ckpt)
     x = x + o
+    if ctx is not None and kind in ("attn", "local_attn", "enc_attn", "moe"):
+        if cfg.sequence_parallel and mode == "train":
+            x = ctx.hint(x, "DP", "TP", None)  # Megatron-SP residual
+        else:
+            x = ctx.hint(x, "DP", None, None)
     h2 = segment(ckpt, rms_norm, x, p["norm2"], cfg.norm_eps)
     if kind == "dec_attn":
         o, cross = _cross_attention(p, h2, cfg, mode, cache, aux, ckpt)

@@ -17,9 +17,11 @@ Block kinds (the port runs all of them):
   mlstm       xLSTM matrix-memory block (chunkwise parallel)
   slstm       xLSTM scalar-memory block (sequential scan)
 
-The JAX fields that only steer tensor-parallel sharding
-(``matmul_reduce_dtype``, ``sequence_parallel``, ``shard_vocab_embed``)
-are not carried: the port runs on one device.
+Of the JAX fields that steer tensor-parallel sharding, the port carries
+``sequence_parallel`` (``blocks.apply_block``'s residual layout) and
+``shard_vocab_embed`` (``sharding.specs``); ``matmul_reduce_dtype`` is
+not carried: a DTensor product reduces its partial sums in its output's
+dtype.
 """
 from __future__ import annotations
 
@@ -99,12 +101,18 @@ class ModelConfig:
     dtype: str = "bfloat16"      # compute dtype
     param_dtype: str = "float32"  # storage dtype
     logit_dtype: str = "float32"
+    # Megatron-style sequence parallelism: in training the residual after
+    # attention is laid out (B, S/tp, d) over the model dim
+    sequence_parallel: bool = False
     # training
     remat: str = "dots"
     loss_chunk: int = 0
     loss_impl: str = "log_softmax"
     tie_embeddings: bool = False
     scan_layers: bool = True
+    # True: the embedding's vocab dim shards over the model dim; False: its
+    # d over the data dim (the token gather stays local)
+    shard_vocab_embed: bool = True
 
     # ------------------------------------------------------------------
     @property

@@ -37,6 +37,16 @@ activation inputs and outputs as autograd saves them (JAX's policy
 recomputes the inputs too), but no weight cast: each period and the
 logits' product run under ``layers.common.recast_weights``, so the
 backward casts the f32 weights again.
+
+SPMD: every entry point takes ``ctx`` (``layers.common.ShardCtx``).  With
+a mesh, the parameters, batch and cache are DTensors laid out by
+:mod:`repro_torch.sharding.specs`; the embedding output is laid out over
+the data dims and the blocks lay out their residuals (``blocks.
+apply_block``), where JAX's ``ctx.hint`` constrains them.  The entry
+points then run under ``common.spmd_scope`` (DTensor's
+``implicit_replication``): the plain constants made inside the model
+(masks, default positions, zeros) count as replicated, not converted one
+by one.
 """
 from __future__ import annotations
 
@@ -48,7 +58,14 @@ from typing import Any, Dict
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.layers.common import cast, dense_init, recast_weights, rms_norm
+from repro_torch.layers.common import (
+    cast,
+    dense_init,
+    recast_weights,
+    rms_norm,
+    spmd_scope,
+    whole_op,
+)
 from repro_torch.layers.positional import (
     default_positions,
     mrope_angles,
@@ -168,7 +185,7 @@ def _recast_scope(cfg: ModelConfig):
     return recast_weights() if cfg.remat == "dots" else contextlib.nullcontext()
 
 
-def _run_stage_train(stage_params, pattern, repeats: int, x, cfg: ModelConfig, aux):
+def _run_stage_train(stage_params, pattern, repeats: int, x, cfg: ModelConfig, aux, ctx=None):
     """The stage's layers in training: ``(x, aux loss)``, the loss a
     Python ``0.0`` while no ``moe`` block has added to it."""
     if cfg.remat == "dots":
@@ -177,7 +194,7 @@ def _run_stage_train(stage_params, pattern, repeats: int, x, cfg: ModelConfig, a
     def body(x, lp):
         aloss = 0.0
         for pi, kind in enumerate(pattern):
-            x, _, a = apply_block(kind, lp[pi], x, cfg, "train", aux=aux)
+            x, _, a = apply_block(kind, lp[pi], x, cfg, "train", aux=aux, ctx=ctx)
             aloss = aloss + a
         return x, aloss
 
@@ -231,7 +248,13 @@ def _rope_aux(cfg: ModelConfig, batch_size: int, seq: int, offset, device, extra
 
 
 def _embed(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens].to(cfg.compute_dtype)
+    """The token rows of the embedding, in the compute dtype.  On DTensors
+    the table and the ids are made whole (``whole_op``: the gather and its
+    gradient's scatter have no sharding rule for the spec rules' layouts
+    in torch 2.11); ``forward_hidden`` then lays the rows out."""
+    ids = whole_op(lambda t: t, tokens)
+    ids = ids.to_local() if hasattr(ids, "device_mesh") else ids
+    return whole_op(lambda w: w[ids], params["embed"]).to(cfg.compute_dtype)
 
 
 def _logits(cfg: ModelConfig, params, hidden: torch.Tensor) -> torch.Tensor:
@@ -239,7 +262,8 @@ def _logits(cfg: ModelConfig, params, hidden: torch.Tensor) -> torch.Tensor:
     return hidden @ cast(w, cfg.compute_dtype)
 
 
-def encode(cfg: ModelConfig, params, frames: torch.Tensor, mode: str = "train") -> torch.Tensor:
+def encode(cfg: ModelConfig, params, frames: torch.Tensor, mode: str = "train",
+           ctx=None) -> torch.Tensor:
     """The whisper-style encoder over precomputed (stub) frontend frames
     (B, F, d_input): cast to the compute dtype, the optional ``proj``,
     plus the sinusoidal table, the encoder stages (no RoPE), then the
@@ -256,16 +280,16 @@ def encode(cfg: ModelConfig, params, frames: torch.Tensor, mode: str = "train") 
     for si, (pattern, repeats) in enumerate(cfg.encoder.stages):
         sp = enc["stages"][si]
         if mode == "train":
-            x, _ = _run_stage_train(sp, pattern, repeats, x, cfg, {})
+            x, _ = _run_stage_train(sp, pattern, repeats, x, cfg, {}, ctx)
             continue
         for lp in _unstack(sp, repeats):
             for pi, kind in enumerate(pattern):
-                x, _, _ = apply_block(kind, lp[pi], x, cfg, mode)
+                x, _, _ = apply_block(kind, lp[pi], x, cfg, mode, ctx=ctx)
     return rms_norm(x, enc["norm"], cfg.norm_eps)
 
 
 def forward_hidden(cfg: ModelConfig, params, tokens: torch.Tensor, mode: str,
-                   caches=None, pos=None, extras=None):
+                   caches=None, pos=None, extras=None, ctx=None):
     """Returns ``(hidden, stage caches, aux loss)``.  ``mode='train'``: no
     caches; each pattern period rematerialised per ``cfg.remat``.
     ``mode='prefill'``: every cache leaf stacked (L, B, ...).
@@ -274,17 +298,19 @@ def forward_hidden(cfg: ModelConfig, params, tokens: torch.Tensor, mode: str,
     updated in place and returned.  ``extras``: the batch extras (module
     docstring).  The aux loss (an f32 scalar) sums the ``moe`` blocks'
     load-balancing losses in training; it is zero in prefill and decode,
-    whose callers drop it."""
+    whose callers drop it.  ``ctx``: the layout (module docstring)."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode must be train|prefill|decode, got {mode!r}")
     extras = extras or {}
     _check_extras(cfg, extras, mode)
     b, s = tokens.shape
     x = _embed(cfg, params, tokens)
+    if ctx is not None:
+        x = ctx.hint(x, "DP", None, None)
     offset = pos if mode == "decode" else 0
     aux = _rope_aux(cfg, b, s, offset, tokens.device, extras)
     if "encoder_frames" in extras:
-        aux["enc"] = encode(cfg, params, extras["encoder_frames"], mode)
+        aux["enc"] = encode(cfg, params, extras["encoder_frames"], mode, ctx)
     if mode == "decode" and cfg.encoder is not None:
         # cross-attention attends every cached frame: cur = T - 1 on every row
         t = next(c["ck"].shape[2] for stage in caches["stages"] for c in stage if "ck" in c)
@@ -294,7 +320,7 @@ def forward_hidden(cfg: ModelConfig, params, tokens: torch.Tensor, mode: str,
     for si, (pattern, repeats) in enumerate(cfg.stages):
         sp = params["stages"][si]
         if mode == "train":
-            x, a = _run_stage_train(sp, pattern, repeats, x, cfg, aux)
+            x, a = _run_stage_train(sp, pattern, repeats, x, cfg, aux, ctx)
             aloss = aloss + a
             continue
         per_layer = []
@@ -305,7 +331,7 @@ def forward_hidden(cfg: ModelConfig, params, tokens: torch.Tensor, mode: str,
                 if mode == "decode":
                     cache = _layer(caches["stages"][si][pi], i)
                 x, c, _ = apply_block(kind, _layer(sp[pi], i), x, cfg, mode,
-                                      cache=cache, pos=pos, aux=aux)
+                                      cache=cache, pos=pos, aux=aux, ctx=ctx)
                 out.append(c)
             per_layer.append(out)
         if mode == "prefill":
@@ -323,7 +349,7 @@ def forward_hidden(cfg: ModelConfig, params, tokens: torch.Tensor, mode: str,
 # ------------------------------------------------------------------ loss
 
 
-def loss_fn(cfg: ModelConfig, params, batch):
+def loss_fn(cfg: ModelConfig, params, batch, ctx=None):
     """Mean next-token cross-entropy over labels >= 0 (negative labels are
     masked), plus ``AUX_LOSS_WEIGHT`` times the aux loss.  ``batch``:
     ``tokens`` and ``labels`` (B, S) int tensors, and the extras the
@@ -331,9 +357,14 @@ def loss_fn(cfg: ModelConfig, params, batch):
     dtype, then f32; ``cfg.loss_chunk`` splits the sequence into chunks
     summed in order; ``cfg.loss_impl`` is "log_softmax" or "lse".
     Returns ``(loss, {"ce", "aux"})``."""
+    with spmd_scope(ctx):
+        return _loss(cfg, params, batch, ctx)
+
+
+def _loss(cfg: ModelConfig, params, batch, ctx):
     tokens, labels = batch["tokens"], batch["labels"]
     extras = {k: v for k, v in batch.items() if k not in ("tokens", "labels")}
-    hidden, _, aloss = forward_hidden(cfg, params, tokens, "train", extras=extras)
+    hidden, _, aloss = forward_hidden(cfg, params, tokens, "train", extras=extras, ctx=ctx)
     valid = (labels >= 0).float()
     safe_labels = labels.clamp(min=0).long()
 
@@ -363,17 +394,19 @@ def loss_fn(cfg: ModelConfig, params, batch):
 # --------------------------------------------------------------- serving
 
 
-def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, extras=None):
+def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, extras=None, ctx=None):
     """Prefill a whole batch of ``S`` tokens: logits at the last token and
     a decode cache at the scalar position ``S``.  ``local_attn`` rings hold
     ``min(window, S)`` slots, as in the JAX package: after a prompt shorter
     than the window, decode wraps inside a ring of the prompt's length."""
-    hidden, caches, _ = forward_hidden(cfg, params, tokens, "prefill", extras=extras)
-    pos = torch.tensor(tokens.shape[1], dtype=torch.int32, device=tokens.device)
-    return {"pos": pos, "stages": caches}, _logits(cfg, params, hidden[:, -1])
+    with spmd_scope(ctx):
+        hidden, caches, _ = forward_hidden(cfg, params, tokens, "prefill", extras=extras,
+                                           ctx=ctx)
+        pos = torch.tensor(tokens.shape[1], dtype=torch.int32, device=tokens.device)
+        return {"pos": pos, "stages": caches}, _logits(cfg, params, hidden[:, -1])
 
 
-def decode_step(cfg: ModelConfig, params, cache, tokens: torch.Tensor, extras=None):
+def decode_step(cfg: ModelConfig, params, cache, tokens: torch.Tensor, extras=None, ctx=None):
     """tokens: (B, 1), appended at ``cache['pos']``: a scalar for the
     batch (a 0-d tensor), or one position per row (B,), where row ``i``
     appends at ``pos[i]`` (clamped to the arena's last slot) and attends
@@ -383,9 +416,10 @@ def decode_step(cfg: ModelConfig, params, cache, tokens: torch.Tensor, extras=No
     and ``pos + 1``.  ``extras``: this step's ``positions`` (B, 1) or
     ``positions_3d`` (B, 3, 1), else ``pos``."""
     pos = cache["pos"]
-    hidden, stages, _ = forward_hidden(cfg, params, tokens, "decode", caches=cache, pos=pos,
-                                       extras=extras)
-    return {"pos": pos + 1, "stages": stages}, _logits(cfg, params, hidden[:, -1])
+    with spmd_scope(ctx):
+        hidden, stages, _ = forward_hidden(cfg, params, tokens, "decode", caches=cache,
+                                           pos=pos, extras=extras, ctx=ctx)
+        return {"pos": pos + 1, "stages": stages}, _logits(cfg, params, hidden[:, -1])
 
 
 def extend_cache(cfg: ModelConfig, cache, extra: int):
@@ -408,7 +442,7 @@ def extend_cache(cfg: ModelConfig, cache, extra: int):
 
 
 def prefill_at(cfg: ModelConfig, params, tokens: torch.Tensor, lengths: torch.Tensor,
-               extras=None):
+               extras=None, ctx=None):
     """Right-padded prefill: logits at each row's *last real* token.
 
     ``tokens`` is (B, T) with row ``i`` real through ``lengths[i]`` and
@@ -416,11 +450,13 @@ def prefill_at(cfg: ModelConfig, params, tokens: torch.Tensor, lengths: torch.Te
     never attend the junk, and the returned per-row KV past ``lengths``
     is overwritten by decode writes before it is ever attended.
     """
-    hidden, caches, _ = forward_hidden(cfg, params, tokens, "prefill", extras=extras)
-    lengths = lengths.to(device=tokens.device, dtype=torch.int32)
-    rows = torch.arange(tokens.shape[0], device=tokens.device)
-    last = hidden[rows, lengths.long() - 1]
-    return {"pos": lengths, "stages": caches}, _logits(cfg, params, last)
+    with spmd_scope(ctx):
+        hidden, caches, _ = forward_hidden(cfg, params, tokens, "prefill", extras=extras,
+                                           ctx=ctx)
+        lengths = lengths.to(device=tokens.device, dtype=torch.int32)
+        rows = torch.arange(tokens.shape[0], device=tokens.device)
+        last = hidden[rows, lengths.long() - 1]
+        return {"pos": lengths, "stages": caches}, _logits(cfg, params, last)
 
 
 def write_prefill_slot(cfg: ModelConfig, arena, slot: int, pre):

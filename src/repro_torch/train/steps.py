@@ -12,6 +12,17 @@ splits every entry by rows.  With a ``compressor``
 (:class:`~repro_torch.train.compression.EFCompressor`) the state carries
 ``ef_residual`` and the gradients are compressed, then decompressed,
 before AdamW, one leaf at a time.
+
+SPMD: with a ``ctx`` (``layers.common.ShardCtx``) holding a mesh, the
+state and batch may be DTensors laid out by
+:mod:`repro_torch.sharding.specs` (``state_pspecs``, ``batch_pspecs``):
+the loss runs laid out (``M.loss_fn``), autograd's gradients are laid
+out as their parameters (their partial sums reduced), and AdamW's in-place updates run on the
+DTensor leaves, whose moments ``state_pspecs`` lays out as their
+parameter.  The whole step runs under ``common.spmd_scope``.
+Microbatching splits DTensor batches by rows (``chunk`` on the batch
+dim), and the compressor refuses DTensor gradients by name: its
+quantization scale is one tensor-wide maximum, which a shard cannot see.
 """
 from __future__ import annotations
 
@@ -19,6 +30,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import ops
+from repro_torch.layers.common import ShardCtx, spmd_scope
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.train.compression import EFCompressor
@@ -42,15 +55,19 @@ def init_train_state(cfg: ModelConfig, generator: torch.Generator, optimizer: Ad
     return state
 
 
-def make_train_step(cfg: ModelConfig, optimizer: AdamW, microbatches: int = 1,
-                    compressor: Optional[EFCompressor] = None):
+def make_train_step(cfg: ModelConfig, optimizer: AdamW, ctx: Optional[ShardCtx] = None,
+                    microbatches: int = 1, compressor: Optional[EFCompressor] = None):
     def grad_fn(params, batch):
         leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
-        loss, metrics = M.loss_fn(cfg, tree_unflatten(params, leaves), batch)
-        grads = torch.autograd.grad(loss, leaves)
-        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, list(grads)
+        loss, metrics = M.loss_fn(cfg, tree_unflatten(params, leaves), batch, ctx)
+        grads = [_as_param(g, p) for g, p in zip(torch.autograd.grad(loss, leaves), leaves)]
+        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
     def train_step(state, batch):
+        with spmd_scope(ctx):
+            return _step(state, batch)
+
+    def _step(state, batch):
         params = state["params"]
         if microbatches > 1:
             rows = next(iter(batch.values())).shape[0]
@@ -74,6 +91,9 @@ def make_train_step(cfg: ModelConfig, optimizer: AdamW, microbatches: int = 1,
             loss, metrics, grads = grad_fn(params, batch)
         state["step"].add_(1)
         if compressor is not None:
+            if ops._is_dtensor(*grads):
+                raise TypeError("EFCompressor takes no DTensor gradients: its scale is a "
+                                "tensor-wide maximum that a shard cannot see")
             # error-feedback compression: what would cross the wire
             # is the codes.  Leaf by leaf, so the transients stay one
             # leaf's size; the residual is updated in place
@@ -87,20 +107,29 @@ def make_train_step(cfg: ModelConfig, optimizer: AdamW, microbatches: int = 1,
     return train_step
 
 
-def make_prefill_step(cfg: ModelConfig):
+def _as_param(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A DTensor gradient laid out as its parameter: the partial sums over
+    the data dims that autograd leaves are reduced here (all-reduce, or
+    reduce-scatter onto a sharded parameter), as XLA reduces them."""
+    if hasattr(g, "device_mesh") and g.placements != p.placements:
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+def make_prefill_step(cfg: ModelConfig, ctx: Optional[ShardCtx] = None):
     """``prefill_step(params, tokens, extras=None) -> (cache, logits)``:
     ``M.prefill``."""
     def prefill_step(params, tokens, extras=None):
-        return M.prefill(cfg, params, tokens, extras)
+        return M.prefill(cfg, params, tokens, extras, ctx)
 
     return prefill_step
 
 
-def make_decode_step(cfg: ModelConfig):
+def make_decode_step(cfg: ModelConfig, ctx: Optional[ShardCtx] = None):
     """``decode_step(params, cache, tokens, extras=None) -> (cache,
     logits)``: ``M.decode_step``, which updates the cache's leaves in
     place."""
     def decode_step(params, cache, tokens, extras=None):
-        return M.decode_step(cfg, params, cache, tokens, extras)
+        return M.decode_step(cfg, params, cache, tokens, extras, ctx)
 
     return decode_step

@@ -42,6 +42,21 @@ def tree_unflatten(template, leaves: Iterable):
     return build(template)
 
 
+def map_with_path(fn: Callable[[str, Any], Any], tree):
+    """``tree_map`` where ``fn`` receives ``(path string, leaf)``: the
+    strings of ``repro.utils.tree.map_with_path`` on the same tree
+    (``stages/<i>/<pos>/attn/wq``)."""
+    return _map_path(fn, tree, ())
+
+
+def _map_path(fn, tree, prefix):
+    if isinstance(tree, dict):
+        return {k: _map_path(fn, v, prefix + (k,)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_path(fn, v, prefix + (i,)) for i, v in enumerate(tree))
+    return fn(path_str(prefix), tree)
+
+
 def tree_map(fn: Callable, tree):
     """Apply ``fn`` to every leaf of a nested dict/list/tuple."""
     if isinstance(tree, dict):

@@ -1,6 +1,6 @@
 """The port stands alone: importing every ``repro_torch`` module pulls in
-neither JAX nor any module of the JAX package, and the entry points run
-on CUDA unless asked for the CPU."""
+neither JAX nor any module of the JAX package and starts no process
+group, and the entry points run on CUDA unless asked for the CPU."""
 import os
 import subprocess
 import sys
@@ -20,6 +20,9 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))
+import torch.distributed as dist
+if dist.is_available() and dist.is_initialized():  # launch.mesh, launch.dryrun
+    bad.append("a process group")
 print(len(names), bad)
 """
 

@@ -171,8 +171,16 @@ def test_cpu_path_launches_no_kernel_and_other_devices_raise():
                             "rglru_scan": 0, "rglru_scan_bwd": 0}
     with pytest.raises(ValueError, match="no kernel for device meta"):
         ops.batch_gather(val.to("meta"), idx[0].to("meta"))
-    with pytest.raises(ValueError, match="no kernel for device meta"):
-        ops.flash_attention(q.to("meta"), k.to("meta"), k.to("meta"))
+    # K4, K5 and K6 give meta outputs of the right shape on meta inputs
+    # (the dry run), computing and launching nothing
+    out = ops.flash_attention(q.to("meta"), k.to("meta"), k.to("meta"))
+    assert out.device.type == "meta" and out.shape == q.shape and out.dtype == q.dtype
+    out = ops.flash_decode(q[:, 0].to("meta"), k.to("meta"), k.to("meta"),
+                           torch.zeros(1, dtype=torch.int32, device="meta"))
+    assert out.device.type == "meta" and out.shape == q[:, 0].shape
+    h = ops.rglru_scan(a.detach().to("meta"), a.detach().to("meta"))
+    assert h.device.type == "meta" and h.shape == a.shape and h.dtype == torch.float32
+    assert sum(ops.LAUNCHES.values()) == 0
     with pytest.raises(ValueError, match="no kernel for device meta"):
         ops.csr_dot(idx.to("meta"), val.to("meta"), w.to("meta"))
     with pytest.raises(ValueError, match="several devices"):

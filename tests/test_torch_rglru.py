@@ -130,8 +130,11 @@ def test_scan_rejects_mismatched_shapes():
         ops.rglru_scan(a, x)
     with pytest.raises(ValueError, match="shape"):
         ops.rglru_scan_bwd(a, a, x)
+    # meta inputs (the dry run) give a meta output of the right shape
+    h = ops.rglru_scan(a.to("meta"), a.to("meta"))
+    assert h.device.type == "meta" and h.shape == a.shape and h.dtype == torch.float32
     with pytest.raises(ValueError, match="no kernel"):
-        ops.rglru_scan(a.to("meta"), a.to("meta"))
+        ops.csr_dot(a[0].int().to("meta"), a[0].to("meta"), a[0, 0].to("meta"))
 
 
 # ------------------------------------------------------------ RG-LRU layer

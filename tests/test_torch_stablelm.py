@@ -46,10 +46,10 @@ def test_full_config_matches_jax_field_by_field():
     names = [f.name for f in dataclasses.fields(got)]
     for name in names:
         assert getattr(got, name) == getattr(want, name), name
-    # JAX's layout and reduction knobs the port has no counterpart for,
-    # left at their defaults by the config
+    # JAX's reduction knob the port has no counterpart for, left at its
+    # default by the config
     extra = {f.name: f.default for f in dataclasses.fields(want) if f.name not in names}
-    assert set(extra) == {"shard_vocab_embed", "sequence_parallel", "matmul_reduce_dtype"}
+    assert set(extra) == {"matmul_reduce_dtype"}
     assert all(getattr(want, n) == d for n, d in extra.items())
     assert (got.num_layers, got.d_model, got.kq_dim) == (40, 5120, 160)
     assert (got.num_heads, got.num_kv_heads, got.d_ff, got.vocab_size) == (32, 8, 13824, 100352)

@@ -364,7 +364,7 @@ def test_full_config_matches_jax_field_by_field():
     for name in names:
         assert getattr(got, name) == getattr(want, name), name
     extra = {f.name: f.default for f in dataclasses.fields(want) if f.name not in names}
-    assert set(extra) == {"shard_vocab_embed", "sequence_parallel", "matmul_reduce_dtype"}
+    assert set(extra) == {"matmul_reduce_dtype"}
     assert all(getattr(want, n) == d for n, d in extra.items())
     assert (got.num_layers, got.d_model, got.num_heads, got.vocab_size) == (48, 2048, 4, 50304)
     assert got.stages == ((("mlstm",) * 7 + ("slstm",), 6),) and not got.tie_embeddings
