@@ -218,8 +218,9 @@
    likewise, for K4 and K6 at D 128 (recurrentgemma's local attention
    runs no K4).  Every kernel launch there goes through ``local_map``.
    Then the dry run (``python -m repro_torch.launch.dryrun``) in a
-   subprocess for SPMD_DRYRUN's cells, each ``ok`` with FLOPs, bytes and
-   collectives above 0.
+   subprocess for SPMD_DRYRUN's cells (two of them the dense MoE's
+   expert-parallel dispatch at full width), each ``ok`` with FLOPs, bytes
+   and collectives above 0.
 19. Prints ``{"kernels": [...]}``, then ``{"ok": true, "device": ...}`` as
    the last line.  Any failed check exits non-zero before those lines.
 """
@@ -327,7 +328,11 @@ BLOCKED_BLOCK = 1024  # attn_block's default: the blocked check at LONG_CONTEXT
 # the SPMD layout on a one-card mesh: recurrentgemma-2b's train steps of
 # 1 x 4,096 tokens, and the dry run's cells (arch, shape, mesh)
 SPMD_TRAIN_STEPS, SPMD_SEQ = 4, 4096
-SPMD_DRYRUN = (("granite-3-8b", "train_4k", "single"), ("recurrentgemma-2b", "decode_32k", "multi"))
+# (the dense MoE cells: qwen2-moe-a2.7b's 60 experts do not divide the
+# 16-rank model dim, and dbrx-132b's train step failed on torch 2.11 before
+# the dispatch ran per shard)
+SPMD_DRYRUN = (("granite-3-8b", "train_4k", "single"), ("recurrentgemma-2b", "decode_32k", "multi"),
+               ("qwen2-moe-a2.7b", "train_4k", "single"), ("dbrx-132b", "train_4k", "single"))
 
 MOE_ARCH = "qwen2-moe-a2.7b"
 # qwen2-moe-a2.7b at full width: prefill of MOE_CHECK_TOKENS under

@@ -135,18 +135,41 @@ def _mesh_of(*tensors):
     return next(t.device_mesh for t in tensors if isinstance(t, DTensor))
 
 
+class _ContiguousGrad(torch.autograd.Function):
+    """Identity on values; the gradient made contiguous.  A local
+    backward may return a permuted gradient (attention's dV), and DTensor
+    reshapes a gradient by viewing its local shard, which a permuted
+    shard cannot be."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def _contiguous_grads(fn):
+    def local(*a):
+        return fn(*(_ContiguousGrad.apply(t) if isinstance(t, torch.Tensor) and t.requires_grad
+                    else t for t in a))
+    return local
+
+
 def _local_map(fn, mesh, out_pl, in_pl, *args, in_grad=None):
     """``fn`` on each rank's local shards of ``args`` (plain tensors made
     replicated DTensors first), redistributed to ``in_pl``; the outputs
     laid out by ``out_pl``; the inputs' gradients by ``in_grad`` (default
     ``in_pl``: right for every input split like the batch, wrong for a
-    weight replicated across it, whose local gradient is a partial sum)."""
+    weight replicated across it, whose local gradient is a partial sum),
+    contiguous."""
     from torch.distributed.tensor.experimental import local_map
 
     args = tuple(_as_dtensor(a, mesh) for a in args)
     # one output's placements go as a list (a tuple is one entry an output)
     out_pl = list(out_pl) if not isinstance(out_pl[0], tuple) else out_pl
-    return local_map(fn, out_placements=out_pl, in_placements=in_pl,
+    return local_map(_contiguous_grads(fn), out_placements=out_pl, in_placements=in_pl,
                      in_grad_placements=in_grad, device_mesh=mesh,
                      redistribute_inputs=True)(*args)
 

@@ -19,6 +19,12 @@ each token's first choice.  Every one-hot is built in the compute dtype
 (a comparison against ``arange``), never as ``F.one_hot``'s int64.  With
 ``ckpt`` the work between the products (routing, the one-hots, the
 activations, the scatter) runs in remat segments (``common.segment``).
+
+On DTensors the dense dispatch, the experts' products and the combine
+run on each rank's local shards (``_experts``, through
+``ops.local_shards``), laid out as JAX's spec rules lay the weights out:
+the rows over the data dims, the experts over ``model`` where it divides
+them, else the expert-ff dim; the output is a partial sum over ``model``.
 """
 from __future__ import annotations
 
@@ -26,7 +32,8 @@ import math
 
 import torch
 
-from repro_torch.layers.common import replicate_dims, activation_fn, cast, dense_init, segment
+from repro_torch.kernels import ops
+from repro_torch.layers.common import activation_fn, cast, dense_init, replicate_dims, segment
 from repro_torch.layers.mlp import gated
 from repro_torch.models.config import ModelConfig, MoEConfig
 
@@ -73,11 +80,14 @@ def _router(params, x, moe: MoEConfig, ckpt: bool):
     return segment(ckpt, _route, logits, moe.experts_per_token)
 
 
-def _dispatch_combine(gate, ids, e: int, cap: int, dtype):
-    """The (B,S,E,C) dispatch and combine tensors in ``dtype``, built one
-    choice at a time as JAX builds them."""
+def _dispatch_combine(gate, ids, experts, cap: int, dtype):
+    """The (B,S,E,C) dispatch and combine tensors in ``dtype`` for the
+    experts ``experts`` (their ids, (E,)), built one choice at a time as
+    JAX builds them.  Each expert's slots count its own pairs only, so a
+    slice of the experts gives the same columns as all of them."""
     b, s, k = ids.shape
-    mask = ids[..., None] == torch.arange(e, device=ids.device)  # (B,S,k,E)
+    e = experts.shape[0]
+    mask = ids[..., None] == experts  # (B,S,k,E)
     flat = mask.reshape(b, s * k, e).to(torch.int32)
     pos = (torch.cumsum(flat, dim=1, dtype=torch.int32) * flat - 1).reshape(b, s, k, e)
     keep = (pos >= 0) & (pos < cap) & mask
@@ -92,6 +102,44 @@ def _dispatch_combine(gate, ids, e: int, cap: int, dtype):
     return dispatch, combine
 
 
+def _experts_layout(mesh, gate, ids, experts, x, w_in, w_gate, w_out, *rest):
+    """The dense dispatch as JAX's spec rules lay it out: the rows (gate,
+    ids, x, y) over the data dims, the experts over ``model`` where it
+    divides them, else the expert-ff dim over ``model``.  Either way a
+    rank's products sum only its share of the experts or of ``f``, so ``y``
+    and the gradients of ``gate`` and ``x`` are partial sums over
+    ``model``, and a weight's gradient sums its rank's rows only: partial
+    sums over the data dims that split the batch."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    kp = ops._kernel_placements
+    b, e, f = x.shape[0], w_in.shape[0], w_in.shape[2]
+    rows = kp(mesh, b, None, ())
+    w = kp(mesh, b, 0, (e,), batch_dim=None)
+    if w == kp(mesh, b, None, (), batch_dim=None):
+        w = kp(mesh, b, 2, (f,), batch_dim=None)
+    w_o = tuple(Shard(1) if p == Shard(2) else p for p in w)
+    ex = tuple(p if p == Shard(0) else Replicate() for p in w)
+    red = tuple(Partial() if q.is_shard() else p for p, q in zip(rows, w))
+    dw, dw_o = (tuple(Partial() if r.is_shard() else p for r, p in zip(rows, pl))
+                for pl in (w, w_o))
+    return (red, (rows, rows, ex, rows, w, w, w_o), (red, rows, ex, red, dw, dw, dw_o),
+            (gate, ids, experts, x, w_in, w_gate, w_out, *rest))
+
+
+@ops.local_shards(_experts_layout)
+def _experts(gate, ids, experts, x, w_in, w_gate, w_out, *, cap: int, act, dtype, ckpt: bool):
+    """Dispatch, the experts' products and combine: (B,S,d) from the
+    routing (gate, ids), the experts' ids and the weights in ``dtype``."""
+    dispatch, combine = segment(ckpt, _dispatch_combine, gate, ids, experts, cap, dtype)
+    xin = torch.einsum("bsec,bsd->ebcd", dispatch, x)  # (E,B,C,d)
+    h = torch.einsum("ebcd,edf->ebcf", xin, w_in)
+    gt = torch.einsum("ebcd,edf->ebcf", xin, w_gate)
+    h = segment(ckpt, gated, act, gt, h)
+    yout = torch.einsum("ebcf,efd->ebcd", h, w_out)
+    return torch.einsum("ebcd,bsec->bsd", yout, combine)
+
+
 def apply_moe_dense(params, x, cfg: ModelConfig, moe: MoEConfig, dtype, ckpt: bool = False):
     """Dispatch cost is O(B·S·E·C·d) with C = k·cf·group/E: quadratic in
     the group length; ``moe.group_size`` regroups the sequence into
@@ -103,16 +151,11 @@ def apply_moe_dense(params, x, cfg: ModelConfig, moe: MoEConfig, dtype, ckpt: bo
     _, s, _ = x.shape
     cap = _capacity(moe, s)
     gate, ids, aux = _router(params, x, moe, ckpt)
-    dispatch, combine = segment(ckpt, _dispatch_combine, gate, ids, moe.num_experts, cap, dtype)
-    # DTensor operands keep only their batch split: einsum's flattening of
-    # (S, E, C) has no sharding rule for a split those dims do not divide
-    dispatch, combine, x = (replicate_dims(t, *range(1, t.dim())) for t in (dispatch, combine, x))
-    xin = replicate_dims(torch.einsum("bsec,bsd->ebcd", dispatch, x), 2, 3)  # (E,B,C,d)
-    h = torch.einsum("ebcd,edf->ebcf", xin, cast(params["w_in"], dtype))
-    gt = torch.einsum("ebcd,edf->ebcf", xin, cast(params["w_gate"], dtype))
-    h = segment(ckpt, gated, activation_fn(cfg.activation), gt, h)
-    yout = replicate_dims(torch.einsum("ebcf,efd->ebcd", h, cast(params["w_out"], dtype)), 2, 3)
-    y = replicate_dims(torch.einsum("ebcd,bsec->bsd", yout, combine), 1, 2)
+    x = replicate_dims(x, 1, 2)
+    experts = torch.arange(moe.num_experts, device=ids.device)
+    w = (cast(params[k], dtype) for k in ("w_in", "w_gate", "w_out"))
+    y = _experts(gate, ids, experts, x, *w, cap=cap, act=activation_fn(cfg.activation),
+                 dtype=dtype, ckpt=ckpt)
     if "shared" in params:
         y = y + _shared(params["shared"], x, cfg, dtype, ckpt)
     return y.reshape(b0, s0, d0), aux

@@ -106,8 +106,12 @@ def _scan(ra, ri, u, g, ba, bi, lam, h0, dtype):
 def apply_rglru(params, x: torch.Tensor, dtype, h0=None, conv_hist=None, ckpt: bool = False):
     """x: (B,S,d) -> (y, (h_last, conv_hist)).  Full-sequence path; the
     carried state ``h_last`` stays f32."""
-    u = x @ cast(params["wx"], dtype)
-    g = x @ cast(params["wg"], dtype)
+    # DTensor: the products' partial sums reduced here, as JAX lays the
+    # recurrent block out (no split over ``model``); reduced where the
+    # gates read them, they went onto a split of S beside B's (the 3-dim
+    # mesh), a strided split that DTensor's planner takes minutes to lay out
+    u = replicate_dims(x @ cast(params["wx"], dtype), 1, 2)
+    g = replicate_dims(x @ cast(params["wg"], dtype), 1, 2)
     u, hist = segment(ckpt, _causal_conv, u, params["conv_w"], params["conv_b"], dtype, conv_hist)
     ra, ri = _gate_products(params, u)
     y, h_last = segment(ckpt, _scan, ra, ri, u, g, params["ba"], params["bi"], params["lam"],

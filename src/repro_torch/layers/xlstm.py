@@ -31,7 +31,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 
-from repro_torch.layers.common import cast, dense_init, flatten, segment, unflatten
+from repro_torch.layers.common import (cast, dense_init, flatten, replicate_dims, segment,
+                                      unflatten)
 
 SENTINEL = -1e30  # the stabilisers' start (m), f32 everywhere
 
@@ -70,11 +71,20 @@ def init_mlstm(generator, d_model: int, num_heads: int, proj_factor: float, dtyp
     }
 
 
-def _mlstm_qkv(params, x, num_heads: int, dtype):
+def _mlstm_qkv(params, x, num_heads: int, dtype, reduce: bool = False):
     """u and the output gate (B,S,dp); q, k, v (B,H,S,hd); the log input
-    and forget gates (B,H,S) in f32."""
+    and forget gates (B,H,S) in f32.  With ``reduce`` (a sequence), the
+    up-projections' partial sums on DTensors are reduced where they are
+    made, as JAX lays the block out (no split over ``model``): reduced where
+    a nonlinearity reads them, they went onto a split of S beside B's (the
+    3-dim mesh), a strided split that DTensor's planner takes minutes to
+    lay out."""
     u = x @ cast(params["w_up"], dtype)
-    gate = F.silu(x @ cast(params["w_gate_up"], dtype))
+    g = x @ cast(params["w_gate_up"], dtype)
+    gi = x @ cast(params["w_if"], dtype)
+    if reduce:
+        u, g, gi = (replicate_dims(t, 1, 2) for t in (u, g, gi))
+    gate = F.silu(g)
     b, s, dp = u.shape
     hd = dp // num_heads
     uh = unflatten(u, -1, (num_heads, hd))
@@ -82,7 +92,7 @@ def _mlstm_qkv(params, x, num_heads: int, dtype):
                for w in ("wq", "wk", "wv"))
     # JAX divides by sqrt(hd) rounded to the compute dtype
     k = k / float(torch.tensor(float(hd)).sqrt().to(dtype))
-    gates = (x @ cast(params["w_if"], dtype) + params["b_if"]).float().transpose(1, 2)
+    gates = (gi + params["b_if"]).float().transpose(1, 2)
     log_i, log_f = gates[:, :num_heads], _log_sigmoid(gates[:, num_heads:])
     return u, gate, q, k, v, log_i, log_f
 
@@ -129,6 +139,28 @@ def _normalise(intra, n_intra, q_state, qn_state, state_w, dtype):
     return (num / torch.maximum(den.abs(), one)[..., None]).to(dtype)
 
 
+def _rows_layout(mesh, *ts):
+    """Every operand and output split by its rows (dim 0, the batch) over
+    the data dims, the rest whole: each (row, head, chunk) is independent."""
+    pl = ops._kernel_placements(mesh, ts[0].shape[0], None, ())
+    return (pl,) * 4, (pl,) * len(ts), None, ts
+
+
+@ops.local_shards(_rows_layout)
+def _chunk_products(q, k, v, intra_w, key_w):
+    """Every chunk's products at once, on each rank's rows for DTensors
+    (DTensor's own propagation split the flattened (B, H, chunk) dim of
+    their backward over ``model`` too, where the batch cannot take it):
+    the scores times the intra weights ``p`` (B,H,nc,t,s), ``p @ v``, and
+    each chunk's state update ``kv`` and normaliser update ``kn`` in f32."""
+    p = (q @ k.transpose(-1, -2)) * intra_w  # scores x intra weights, (B,H,nc,t,s)
+    intra = p @ v
+    kf = k.float()
+    kv = (kf * key_w[..., None]).transpose(-1, -2) @ v.float()  # each chunk's state update
+    kn = (key_w[..., None, :] @ kf)[..., 0, :]
+    return p, intra, kv, kn
+
+
 def mlstm_chunkwise(params, x: torch.Tensor, num_heads: int, chunk: int, dtype, state=None,
                     ckpt: bool = False):
     """x: (B,S,d).  Returns (y, state), state = (C (B,H,hd,hd), n (B,H,hd),
@@ -142,7 +174,7 @@ def mlstm_chunkwise(params, x: torch.Tensor, num_heads: int, chunk: int, dtype, 
     the scan.  JAX's ``unroll`` flag (an unrolled scan for dry-run cost
     accounting) has no counterpart."""
     b, s, _ = x.shape
-    u, gate, q, k, v, log_i, log_f = _mlstm_qkv(params, x, num_heads, dtype)
+    u, gate, q, k, v, log_i, log_f = _mlstm_qkv(params, x, num_heads, dtype, reduce=True)
     hd = q.shape[-1]
     c = min(chunk, s)
     if s % c:
@@ -162,11 +194,8 @@ def mlstm_chunkwise(params, x: torch.Tensor, num_heads: int, chunk: int, dtype, 
     causal = torch.ones((c, c), dtype=torch.bool, device=x.device).tril()
     intra_w, state_w, key_w, decay = segment(ckpt, _stabilisers, li, lfc, w_key, m_key, m_prev,
                                              m_next, causal, dtype)
-    p = (q @ k.transpose(-1, -2)) * intra_w  # scores x intra weights, (B,H,nc,t,s)
-    intra = p @ v
-    qf, kf = q.float(), k.float()
-    kv = (kf * key_w[..., None]).transpose(-1, -2) @ v.float()  # each chunk's state update
-    kn = (key_w[..., None, :] @ kf)[..., 0, :]
+    p, intra, kv, kn = _chunk_products(q, k, v, intra_w, key_w)
+    qf = q.float()
     q_state, qn_state = [], []
     for ci in range(nc):
         q_state.append(qf[:, :, ci] @ C)
@@ -328,13 +357,17 @@ def _scan_layout(mesh, pre, r2, *state):
 _scan = ops.local_shards(_scan_layout)(_SLSTMScan.apply)
 
 
-def slstm_scan(params, x: torch.Tensor, num_heads: int, dtype, state=None):
+def slstm_scan(params, x: torch.Tensor, num_heads: int, dtype, state=None, reduce: bool = True):
     """x: (B,S,d) -> (y, state), state = (c, n, m, h), each (B,H,hd) in f32.
     The recurrent weights are cast to f32 and the recurrence runs in f32 in
-    every compute dtype."""
+    every compute dtype.  ``reduce``: as ``_mlstm_qkv``'s (off for the
+    decode step)."""
     b, s, d = x.shape
     hd = d // num_heads
-    pre = (x @ cast(params["w_in"], dtype) + params["b"]).float()
+    pre = x @ cast(params["w_in"], dtype)
+    if reduce:
+        pre = replicate_dims(pre, 1, 2)
+    pre = (pre + params["b"]).float()
     pre = flatten(unflatten(pre, -1, (4, num_heads, hd)).permute(1, 3, 0, 2, 4), 3, 4)
     if state is None:
         zeros = x.new_zeros((num_heads, b, hd), dtype=torch.float32)
@@ -350,4 +383,4 @@ def slstm_scan(params, x: torch.Tensor, num_heads: int, dtype, state=None):
 
 def slstm_step(params, x: torch.Tensor, state, num_heads: int, dtype):
     """Single-token decode: ``slstm_scan`` over one step from ``state``."""
-    return slstm_scan(params, x, num_heads, dtype, state=state)
+    return slstm_scan(params, x, num_heads, dtype, state=state, reduce=False)

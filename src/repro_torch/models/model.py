@@ -58,13 +58,13 @@ from typing import Any, Dict
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.kernels import ops
 from repro_torch.layers.common import (
     cast,
     dense_init,
     recast_weights,
     rms_norm,
     spmd_scope,
-    whole_op,
 )
 from repro_torch.layers.positional import (
     default_positions,
@@ -247,14 +247,53 @@ def _rope_aux(cfg: ModelConfig, batch_size: int, seq: int, offset, device, extra
     return {"rope_angles": rope_angles(positions, cfg.kq_dim, cfg.rope_theta)}
 
 
+def _embed_layout(mesh, w, ids):
+    """The gather on each rank's shard of the table, as JAX's spec rules
+    lay the table out (``sharding.specs``): on a mesh dim that splits the
+    table's d, the ids are whole and the rows come out with their d split
+    there; on one that splits its vocab, the ids are whole, each rank
+    gathers its rows (the rest are zero) and the rows are partial sums; on
+    any other, the ids keep their split and the rows follow it, and the
+    table's gradient sums the rank's ids only (partial sums)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    whole = (Replicate(),) * mesh.ndim
+    w_pl, idp = (tuple(getattr(t, "placements", whole)) for t in (w, ids))
+    ids_pl, out_pl, dw_pl = [], [], []
+    for wp, ip in zip(w_pl, idp):
+        if wp == Shard(1) or wp == Shard(0):
+            ids_pl.append(Replicate())
+            out_pl.append(Shard(ids.dim()) if wp == Shard(1) else Partial())
+            dw_pl.append(wp)
+        else:
+            split = ip if ip.is_shard() else Replicate()
+            ids_pl.append(split)
+            out_pl.append(split)
+            dw_pl.append(Partial() if ip.is_shard() else Replicate())
+    lo = None
+    if Shard(0) in w_pl:
+        lo = compute_local_shape_and_global_offset(w.shape, mesh, w_pl)[1][0]
+    return tuple(out_pl), (w_pl, tuple(ids_pl)), \
+        (tuple(dw_pl), tuple(ids_pl)), (w, ids, lo)
+
+
+@ops.local_shards(_embed_layout)
+def _gather_rows(w, ids, lo=None):
+    """``w[ids]``; with ``lo``, ``w`` holds the rows ``lo, lo + 1, ...``
+    of the table and the ids outside them give zero rows."""
+    if lo is None:
+        return w[ids]
+    local = ids - lo
+    hit = (local >= 0) & (local < w.shape[0])
+    return torch.where(hit[..., None], w[torch.where(hit, local, 0)], 0.0)
+
+
 def _embed(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor:
-    """The token rows of the embedding, in the compute dtype.  On DTensors
-    the table and the ids are made whole (``whole_op``: the gather and its
-    gradient's scatter have no sharding rule for the spec rules' layouts
-    in torch 2.11); ``forward_hidden`` then lays the rows out."""
-    ids = whole_op(lambda t: t, tokens)
-    ids = ids.to_local() if hasattr(ids, "device_mesh") else ids
-    return whole_op(lambda w: w[ids], params["embed"]).to(cfg.compute_dtype)
+    """The token rows of the embedding, in the compute dtype: on
+    DTensors, gathered on each rank's shard of the table
+    (``_embed_layout``); ``forward_hidden`` then lays the rows out."""
+    return _gather_rows(params["embed"], tokens).to(cfg.compute_dtype)
 
 
 def _logits(cfg: ModelConfig, params, hidden: torch.Tensor) -> torch.Tensor:

@@ -5,7 +5,10 @@ sequences by index), so paths and leaf lists line up with
 ``jax.tree_util`` on the same tree."""
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, Iterable, List, Tuple
+
+import numpy as np
 
 
 def path_str(path) -> str:
@@ -64,3 +67,20 @@ def tree_map(fn: Callable, tree):
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, v) for v in tree)
     return fn(tree)
+
+
+def tree_param_count(tree: Any) -> int:
+    """The entries of every leaf (tensors or arrays), summed."""
+    return int(sum(math.prod(x.shape) for x in tree_leaves(tree) if x is not None))
+
+
+def tree_bytes(tree: Any) -> int:
+    """The bytes of every leaf: entries times the dtype's item size (a
+    torch or numpy dtype, or anything ``np.dtype`` takes)."""
+    total = 0
+    for x in tree_leaves(tree):
+        if x is None:
+            continue
+        dt = np.dtype(x.dtype) if not hasattr(x.dtype, "itemsize") else x.dtype
+        total += math.prod(x.shape) * dt.itemsize
+    return int(total)
