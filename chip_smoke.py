@@ -217,10 +217,12 @@
    granite-3-8b at full width, GRANITE_LAYERS layers, prefill and decode
    likewise, for K4 and K6 at D 128 (recurrentgemma's local attention
    runs no K4).  Every kernel launch there goes through ``local_map``.
-   Then the dry run (``python -m repro_torch.launch.dryrun``) in a
-   subprocess for SPMD_DRYRUN's cells (two of them the dense MoE's
-   expert-parallel dispatch at full width), each ``ok`` with FLOPs, bytes
-   and collectives above 0.
+   Then the dry run (``python -m repro_torch.launch.dryrun``) of
+   SPMD_DRYRUN's cells (two of them the dense MoE's expert-parallel
+   dispatch at full width), each ``ok`` with FLOPs, bytes and collectives
+   above 0: each cell in a process of its own, all started before the LM
+   training phase (``start_dryruns``), so that they trace on the host's
+   spare cores while the card works, and read here.
 19. Prints ``{"kernels": [...]}``, then ``{"ok": true, "device": ...}`` as
    the last line.  Any failed check exits non-zero before those lines.
 """
@@ -229,10 +231,13 @@ from __future__ import annotations
 import itertools
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
@@ -3815,15 +3820,79 @@ def _spmd_serve(cfg, params, toks, steps, dev, mesh=None, feed=None):
     return pre, outs, fed, dict(ops.LAUNCHES), secs
 
 
-def spmd_phase(dev):
+def _dryrun_cell(cell, tmp, procs):
+    """One SPMD_DRYRUN cell's dry run in a process of its own (at most 300
+    s; on meta tensors and a fake process group, so the card is hidden
+    from it): its exit code, output and wall seconds."""
+    arch, shape, mesh_kind = cell
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+         "--mesh", mesh_kind, "--out", os.path.join(tmp, f"{arch}_{shape}_{mesh_kind}.json")],
+        env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), CUDA_VISIBLE_DEVICES=""),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT)
+    procs.append(proc)
+    try:
+        stdout, stderr = proc.communicate(timeout=300)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        stdout, stderr = proc.communicate()
+        stderr += "\ntimed out after 300 s"
+    return proc.returncode, stdout, stderr, time.perf_counter() - t0
+
+
+def start_dryruns():
+    """Start every SPMD_DRYRUN cell's dry run at once (``spmd_phase`` reads
+    them; ``stop_dryruns`` ends them)."""
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+    pool, procs = ThreadPoolExecutor(len(SPMD_DRYRUN)), []
+    runs = [(cell, pool.submit(_dryrun_cell, cell, tmp, procs)) for cell in SPMD_DRYRUN]
+    return {"dir": tmp, "pool": pool, "procs": procs, "runs": runs}
+
+
+def stop_dryruns(dryruns):
+    """Kill what still runs, wait for the threads, remove the records."""
+    for proc in dryruns["procs"]:
+        if proc.poll() is None:
+            proc.kill()
+    dryruns["pool"].shutdown(wait=True)
+    shutil.rmtree(dryruns["dir"], ignore_errors=True)
+
+
+def read_dryruns(dryruns):
+    """Wait for each dry run ``start_dryruns`` started, print its record
+    and check it."""
+    for (arch, shape, mesh_kind), fut in dryruns["runs"]:
+        rc, stdout, stderr, wall = fut.result()
+        check(rc == 0, f"dry run of {arch} {shape} {mesh_kind} exited {rc}: {stdout[-1500:]} "
+              f"{stderr[-1500:]}")
+        with open(os.path.join(dryruns["dir"], f"{arch}_{shape}_{mesh_kind}.json")) as f:
+            r = next(iter(json.load(f).values()))
+        rl = r["roofline"]
+        print(f"  dry run {arch} {shape} {mesh_kind} ({r['chips']} ranks): status "
+              f"{r['status']}, trace {r['trace_s']} s ({wall:.1f} s with the process, beside the "
+              f"card phases); per device {r['flops_per_device']:.4e} FLOPs, "
+              f"{r['bytes_per_device']:.4e} bytes, {r['collective_per_device_bytes']:.4e} "
+              f"collective bytes over {r['collective_count']} collectives "
+              f"{r['collective_by_kind']}; roofline compute {rl['t_compute_s']:.4e} s, memory "
+              f"{rl['t_memory_s']:.4e} s, collective {rl['t_collective_s']:.4e} s, dominant "
+              f"{rl['dominant']}; useful_flops_ratio {r['model']['useful_flops_ratio']:.4f}; "
+              f"peak {r['memory']['peak_bytes'] / 1e9:.2f} GB")
+        check(r["status"] == "ok", f"dry run {arch} {shape}: {r.get('error')}")
+        check(r["flops_per_device"] > 0 and r["bytes_per_device"] > 0
+              and r["collective_per_device_bytes"] > 0, f"dry run {arch} {shape}: {r}")
+        check(rl["dominant"] in ("compute", "memory", "collective"), f"dominant {rl}")
+
+
+def spmd_phase(dev, dryruns):
     """The SPMD layout on a one-card mesh, every kernel through
     ``local_map`` (module docstring, item 18): recurrentgemma-2b trained,
     prefilled and decoded as DTensors against the plain path, granite-3-8b
-    prefilled and decoded likewise, then the dry run of SPMD_DRYRUN's
-    cells in subprocesses.  Returns the laid-out runs' launches by kernel
-    (K5 from training, K6 from both decodes, K4 from granite's prefill)."""
-    import tempfile
-
+    prefilled and decoded likewise, then the dry runs of SPMD_DRYRUN's
+    cells that ``start_dryruns`` started.  Returns the laid-out runs'
+    launches by kernel (K5 from training, K6 from both decodes, K4 from
+    granite's prefill)."""
     import torch.distributed as dist
 
     from repro_torch.configs import get_config
@@ -3907,36 +3976,7 @@ def spmd_phase(dev):
     finally:
         dist.destroy_process_group()
 
-    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
-        out = os.path.join(tmp, "dryrun.json")
-        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-        for arch, shape, mesh_kind in SPMD_DRYRUN:
-            t0 = time.perf_counter()
-            run = subprocess.run(
-                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
-                 shape, "--mesh", mesh_kind, "--out", out],
-                env=env, capture_output=True, text=True, timeout=300, cwd=ROOT)
-            wall = time.perf_counter() - t0
-            check(run.returncode == 0, f"dry run of {arch} {shape} {mesh_kind} exited "
-                  f"{run.returncode}: {run.stdout[-1500:]} {run.stderr[-1500:]}")
-            with open(out) as f:
-                r = next(v for v in json.load(f).values()
-                         if (v["arch"], v["shape"], v["mesh"]) == (arch, shape, mesh_kind))
-            rl = r["roofline"]
-            print(f"  dry run {arch} {shape} {mesh_kind} ({r['chips']} ranks): status "
-                  f"{r['status']}, trace {r['trace_s']} s ({wall:.1f} s with the process); "
-                  f"per device {r['flops_per_device']:.4e} FLOPs, {r['bytes_per_device']:.4e} "
-                  f"bytes, {r['collective_per_device_bytes']:.4e} collective bytes over "
-                  f"{r['collective_count']} collectives {r['collective_by_kind']}; roofline "
-                  f"compute {rl['t_compute_s']:.4e} s, memory {rl['t_memory_s']:.4e} s, "
-                  f"collective {rl['t_collective_s']:.4e} s, dominant {rl['dominant']}; "
-                  f"useful_flops_ratio {r['model']['useful_flops_ratio']:.4f}; peak "
-                  f"{r['memory']['peak_bytes'] / 1e9:.2f} GB")
-            check(r["status"] == "ok", f"dry run {arch} {shape}: {r.get('error')}")
-            check(r["flops_per_device"] > 0 and r["bytes_per_device"] > 0
-                  and r["collective_per_device_bytes"] > 0, f"dry run {arch} {shape}: {r}")
-            check(rl["dominant"] in ("compute", "memory", "collective"), f"dominant {rl}")
+    read_dryruns(dryruns)
     return launches
 
 
@@ -3988,6 +4028,16 @@ def main() -> int:
     for name, count in dnn_phase(dev).items():
         rows.append(dict(gathers[name], launches=count))
     print(f"DNN phase {time.perf_counter() - t0:.1f} s")
+    dryruns = start_dryruns()
+    try:
+        return _card_phases(dev, rows, gathers, scans, wide_decode, whisper_kernels, dryruns,
+                            smi)
+    finally:
+        stop_dryruns(dryruns)
+
+
+def _card_phases(dev, rows, gathers, scans, wide_decode, whisper_kernels, dryruns, smi) -> int:
+    """``main`` from the LM training phase on, while the dry runs trace."""
     t0 = time.perf_counter()
     train_launches = train_phase(dev)
     print(f"training phase {time.perf_counter() - t0:.1f} s")
@@ -4037,7 +4087,7 @@ def main() -> int:
     qwen_vl_phase(dev)
     print(f"{QWEN_VL_ARCH} phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    spmd_launches = spmd_phase(dev)
+    spmd_launches = spmd_phase(dev, dryruns)
     print(f"SPMD phase {time.perf_counter() - t0:.1f} s")
     for row in rows:
         if row["name"] in spmd_launches:

@@ -32,15 +32,21 @@ The roofline constants are one H100's (NVIDIA's data sheet, SXM part,
 dense rates), at the full 700 W power limit.  Results are cached
 incrementally in ``build/repro_torch/dryrun.json`` (or ``--out``) keyed
 by (arch, shape, mesh, strategy, variant); re-runs skip completed cells
-unless ``--force``.  The fake process group starts in ``main``.
+unless ``--force``.  The fake process group starts in ``main``.  With
+``--all`` (narrowed by ``--arch`` or ``--shape``) each cell runs in a
+fresh process, as many side by side as there are CPUs.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import os
+import subprocess
+import sys
 import time
 import traceback
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 from repro_torch.configs import SHAPES, all_cells, cell_is_runnable, get_config
@@ -247,12 +253,59 @@ def save_results(res, path: Path):
     tmp.replace(path)
 
 
+def _run_apart(args, arch, shape, mk, out_path: Path):
+    """One cell in a fresh process (a DTensor trace leaves caches behind
+    and the dry run is single threaded); its record, or an error record
+    with the end of its output."""
+    part = out_path.with_name(f".{arch}_{shape}_{mk}.json")
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+           "--mesh", mk, "--variant", args.variant, "--out", str(part), "--force"]
+    cmd += ["--strategy", args.strategy] if args.strategy else []
+    cmd += [f"--set={o}" for o in args.overrides] + (["--keep-trace"] if args.keep_trace else [])
+    run = subprocess.run(cmd, capture_output=True, text=True)
+    recs = load_results(part)
+    part.unlink(missing_ok=True)
+    if recs:
+        return next(iter(recs.values()))
+    return {"status": "error", "error": f"exit {run.returncode}: {run.stderr[-2000:]}"}
+
+
+def _run_here(args, arch, shape, mk, out_path: Path):
+    try:
+        return run_cell(arch, shape, mk, args.strategy, args.overrides, args.variant,
+                        args.keep_trace, out_path)
+    except Exception as e:  # noqa: BLE001 — record failures as data
+        return {"status": "error", "error": f"{type(e).__name__}: {e}",
+                "traceback": traceback.format_exc()[-4000:]}
+
+
+def _record(results, cell, r, args, out_path: Path) -> bool:
+    """Print and save one cell's record; True if it failed."""
+    arch, shape, mk, key = cell
+    if r["status"] == "ok":
+        rl = r["roofline"]
+        print(f"[ok] {key}: trace={r['trace_s']:.1f}s dominant={rl['dominant']} "
+              f"compute={rl['t_compute_s']:.4f}s memory={rl['t_memory_s']:.4f}s "
+              f"collective={rl['t_collective_s']:.4f}s "
+              f"useful={r['model']['useful_flops_ratio']:.3f} "
+              f"peak={r['memory']['peak_bytes']/1e9:.2f}GB", flush=True)
+    else:
+        r = {"arch": arch, "shape": shape, "mesh": mk, "strategy": key.split("|")[3],
+             "variant": args.variant, **r}
+        print(f"[FAILED] {key}: {r['error'][:2000]}", flush=True)
+    results[key] = r
+    save_results(results, out_path)
+    return r["status"] != "ok"
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch")
     ap.add_argument("--shape")
     ap.add_argument("--mesh", default="single", choices=["single", "multi", "both"])
-    ap.add_argument("--all", action="store_true", help="run every runnable cell")
+    ap.add_argument("--all", action="store_true",
+                    help="run every runnable cell (of --arch and --shape where given), each in "
+                         "a fresh process, as many side by side as there are CPUs")
     ap.add_argument("--strategy", default=None, choices=[None, "tp", "fsdp_tp"])
     ap.add_argument("--set", dest="overrides", action="append", default=[])
     ap.add_argument("--variant", default="baseline")
@@ -262,13 +315,11 @@ def main(argv=None):
     ap.add_argument("--out", default=None, help=f"results file (default {RESULTS})")
     args = ap.parse_args(argv)
 
-    from repro_torch.launch.mesh import _fake_group
-
-    _fake_group()  # the 512-rank fake group both production meshes use
     out_path = Path(args.out) if args.out else RESULTS
     meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
     if args.all:
-        cells = all_cells()
+        cells = [(a, s) for a, s in all_cells()
+                 if args.arch in (None, a) and args.shape in (None, s)]
     else:
         if not (args.arch and args.shape):
             ap.error("--arch and --shape (or --all) required")
@@ -278,7 +329,7 @@ def main(argv=None):
         cells = [(args.arch, args.shape)]
 
     results = load_results(out_path)
-    failures = 0
+    work = []
     for arch, shape in cells:
         for mk in meshes:
             strategy = args.strategy or ("tp" if arch in TP_ONLY else "fsdp_tp")
@@ -286,30 +337,18 @@ def main(argv=None):
             if not args.force and results.get(key, {}).get("status") == "ok":
                 print(f"[skip cached] {key}")
                 continue
-            print(f"[run] {key} ...", flush=True)
-            try:
-                r = run_cell(arch, shape, mk, args.strategy, args.overrides,
-                             args.variant, args.keep_trace, out_path)
-                rl = r["roofline"]
-                print(
-                    f"  ok: trace={r['trace_s']:.1f}s dominant={rl['dominant']} "
-                    f"compute={rl['t_compute_s']:.4f}s memory={rl['t_memory_s']:.4f}s "
-                    f"collective={rl['t_collective_s']:.4f}s "
-                    f"useful={r['model']['useful_flops_ratio']:.3f} "
-                    f"peak={r['memory']['peak_bytes']/1e9:.2f}GB",
-                    flush=True,
-                )
-            except Exception as e:  # noqa: BLE001 — record failures as data
-                failures += 1
-                r = {
-                    "arch": arch, "shape": shape, "mesh": mk,
-                    "strategy": strategy, "variant": args.variant,
-                    "status": "error", "error": f"{type(e).__name__}: {e}",
-                    "traceback": traceback.format_exc()[-4000:],
-                }
-                print(f"  FAILED: {type(e).__name__}: {e}", flush=True)
-            results[key] = r
-            save_results(results, out_path)
+            work.append((arch, shape, mk, key))
+    if args.all:
+        with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+            futures = [pool.submit(_run_apart, args, *w[:3], out_path) for w in work]
+            failures = sum(_record(results, w, f.result(), args, out_path)
+                           for w, f in zip(work, futures))
+    else:
+        from repro_torch.launch.mesh import _fake_group
+
+        _fake_group()  # the 512-rank fake group both production meshes use
+        failures = sum(_record(results, w, _run_here(args, *w[:3], out_path), args, out_path)
+                       for w in work)
     print(f"done; {failures} failures")
     raise SystemExit(1 if failures else 0)
 

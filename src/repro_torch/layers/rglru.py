@@ -123,8 +123,8 @@ def apply_rglru_step(params, x: torch.Tensor, state, dtype):
     """Single decode step.  x: (B,1,d); state = (h_prev (B,W) f32,
     conv_hist (B,CW-1,W)).  Returns (y (B,1,d), (h, conv_hist))."""
     h_prev, conv_hist = state
-    u = x @ cast(params["wx"], dtype)
-    g = activation_fn("gelu")(x @ cast(params["wg"], dtype))
+    u = replicate_dims(x @ cast(params["wx"], dtype), 1, 2)  # as ``apply_rglru``'s
+    g = activation_fn("gelu")(replicate_dims(x @ cast(params["wg"], dtype), 1, 2))
     u, hist = _causal_conv(u, params["conv_w"], params["conv_b"], dtype, conv_hist)
     a, b = _gates(*_gate_products(params, u), u, params["ba"], params["bi"], params["lam"])
     h = a[:, 0] * h_prev.float() + b[:, 0]  # the carried state stays f32

@@ -71,19 +71,15 @@ def init_mlstm(generator, d_model: int, num_heads: int, proj_factor: float, dtyp
     }
 
 
-def _mlstm_qkv(params, x, num_heads: int, dtype, reduce: bool = False):
+def _mlstm_qkv(params, x, num_heads: int, dtype):
     """u and the output gate (B,S,dp); q, k, v (B,H,S,hd); the log input
-    and forget gates (B,H,S) in f32.  With ``reduce`` (a sequence), the
-    up-projections' partial sums on DTensors are reduced where they are
-    made, as JAX lays the block out (no split over ``model``): reduced where
-    a nonlinearity reads them, they went onto a split of S beside B's (the
-    3-dim mesh), a strided split that DTensor's planner takes minutes to
-    lay out."""
-    u = x @ cast(params["w_up"], dtype)
-    g = x @ cast(params["w_gate_up"], dtype)
-    gi = x @ cast(params["w_if"], dtype)
-    if reduce:
-        u, g, gi = (replicate_dims(t, 1, 2) for t in (u, g, gi))
+    and forget gates (B,H,S) in f32.  On DTensors the up-projections'
+    partial sums are reduced where they are made, as JAX lays the block
+    out (no split over ``model``): reduced where a nonlinearity reads them,
+    they went onto a split of S beside B's (the 3-dim mesh), a strided
+    split that DTensor's planner takes minutes to lay out."""
+    u, g, gi = (replicate_dims(x @ cast(params[w], dtype), 1, 2)
+                for w in ("w_up", "w_gate_up", "w_if"))
     gate = F.silu(g)
     b, s, dp = u.shape
     hd = dp // num_heads
@@ -174,7 +170,7 @@ def mlstm_chunkwise(params, x: torch.Tensor, num_heads: int, chunk: int, dtype, 
     the scan.  JAX's ``unroll`` flag (an unrolled scan for dry-run cost
     accounting) has no counterpart."""
     b, s, _ = x.shape
-    u, gate, q, k, v, log_i, log_f = _mlstm_qkv(params, x, num_heads, dtype, reduce=True)
+    u, gate, q, k, v, log_i, log_f = _mlstm_qkv(params, x, num_heads, dtype)
     hd = q.shape[-1]
     c = min(chunk, s)
     if s % c:
@@ -357,17 +353,14 @@ def _scan_layout(mesh, pre, r2, *state):
 _scan = ops.local_shards(_scan_layout)(_SLSTMScan.apply)
 
 
-def slstm_scan(params, x: torch.Tensor, num_heads: int, dtype, state=None, reduce: bool = True):
+def slstm_scan(params, x: torch.Tensor, num_heads: int, dtype, state=None):
     """x: (B,S,d) -> (y, state), state = (c, n, m, h), each (B,H,hd) in f32.
     The recurrent weights are cast to f32 and the recurrence runs in f32 in
-    every compute dtype.  ``reduce``: as ``_mlstm_qkv``'s (off for the
-    decode step)."""
+    every compute dtype.  The input product's partial sums are reduced
+    where made, as ``_mlstm_qkv``'s."""
     b, s, d = x.shape
     hd = d // num_heads
-    pre = x @ cast(params["w_in"], dtype)
-    if reduce:
-        pre = replicate_dims(pre, 1, 2)
-    pre = (pre + params["b"]).float()
+    pre = (replicate_dims(x @ cast(params["w_in"], dtype), 1, 2) + params["b"]).float()
     pre = flatten(unflatten(pre, -1, (4, num_heads, hd)).permute(1, 3, 0, 2, 4), 3, 4)
     if state is None:
         zeros = x.new_zeros((num_heads, b, hd), dtype=torch.float32)
@@ -383,4 +376,4 @@ def slstm_scan(params, x: torch.Tensor, num_heads: int, dtype, state=None, reduc
 
 def slstm_step(params, x: torch.Tensor, state, num_heads: int, dtype):
     """Single-token decode: ``slstm_scan`` over one step from ``state``."""
-    return slstm_scan(params, x, num_heads, dtype, state=state, reduce=False)
+    return slstm_scan(params, x, num_heads, dtype, state=state)

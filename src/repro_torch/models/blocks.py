@@ -315,18 +315,16 @@ def _slstm(p, x, cfg: ModelConfig, mode: str, cache):
     return o, (dict(zip(keys, state)) if mode == "prefill" else None)
 
 
-def _carry(x, cfg: ModelConfig, mode: str, ctx, train_only: bool = False):
+def _carry(x, cfg: ModelConfig, mode: str, ctx):
     """The residual laid out as JAX lays it out (the rows over ``DP``; with
-    ``sequence_parallel`` in training the sequence over ``TP``): after the
-    attention, as JAX constrains it, and in training also after the other
-    kinds' mixers and at every block's end, as JAX's scan over layers keeps
-    its carry, so that partial sums are reduced there.  Left to itself,
+    ``sequence_parallel`` in training the sequence over ``TP``) after every
+    mixer and at every block's end, as JAX's scan over layers keeps its
+    carry, so that partial sums are reduced there.  Left to itself,
     DTensor reduces them where the next norm reads them, onto a split of
     its own choosing: on the 3-dim mesh, of S beside B's, which a
     product's flattening turns into a strided split that its planner takes
-    a minute a product to lay out.  Prefill and decode keep DTensor's own
-    choice there (``train_only``)."""
-    if ctx is None or (train_only and mode != "train"):
+    a minute a product to lay out."""
+    if ctx is None:
         return x
     if cfg.sequence_parallel and mode == "train":
         return ctx.hint(x, "DP", "TP", None)  # Megatron-SP residual
@@ -356,7 +354,7 @@ def apply_block(
     h = segment(ckpt, rms_norm, x, p["norm1"], cfg.norm_eps)
     if kind == "mlstm":
         o, new_cache = _mlstm(p, h, cfg, mode, cache, ckpt)
-        return _carry(x + o, cfg, mode, ctx, train_only=True), new_cache, 0.0
+        return _carry(x + o, cfg, mode, ctx), new_cache, 0.0
     if kind == "rglru":
         o, new_cache = _rglru(p, h, cfg, mode, cache, ckpt)
     elif kind == "slstm":
@@ -364,8 +362,7 @@ def apply_block(
     else:
         self_kind = "attn" if kind == "dec_attn" else kind
         o, new_cache = _self_attention(p, h, cfg, self_kind, mode, cache, pos, aux, ckpt)
-    x = _carry(x + o, cfg, mode, ctx, train_only=kind not in ("attn", "local_attn", "enc_attn",
-                                                             "moe"))
+    x = _carry(x + o, cfg, mode, ctx)
     h2 = segment(ckpt, rms_norm, x, p["norm2"], cfg.norm_eps)
     if kind == "dec_attn":
         o, cross = _cross_attention(p, h2, cfg, mode, cache, aux, ckpt)
@@ -375,7 +372,7 @@ def apply_block(
         h2 = segment(ckpt, rms_norm, x, p["norm3"], cfg.norm_eps)
     if kind == "moe":
         y, aloss = moe_lib.apply_moe(p["moe"], h2, cfg, cfg.moe, dt, ckpt)
-        return _carry(x + y, cfg, mode, ctx, train_only=True), new_cache, aloss
+        return _carry(x + y, cfg, mode, ctx), new_cache, aloss
     act = "geglu" if kind == "slstm" else cfg.activation
     y = apply_ffn(p["ffn"], h2, act, dt, ckpt)
-    return _carry(x + y, cfg, mode, ctx, train_only=True), new_cache, 0.0
+    return _carry(x + y, cfg, mode, ctx), new_cache, 0.0

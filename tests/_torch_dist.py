@@ -30,7 +30,8 @@ def _spmd_step_rank(rank, world, init_file, cases, out_q):
     ``state_pspecs``, one train step; with ``decode_steps``, the initial
     parameters laid out by ``param_pspecs``, a prefill, then
     teacher-forced decode steps from an empty cache laid out by
-    ``cache_pspecs``.  Every output is gathered whole (numpy)."""
+    ``cache_pspecs``.  Every output is gathered whole (numpy).  A case
+    with ``shard_vocab_embed`` is an embedding case (``_embed_case``)."""
     import torch
     import torch.distributed as dist
 
@@ -53,6 +54,9 @@ def _spmd_step_rank(rank, world, init_file, cases, out_q):
         whole = lambda t: t.full_tensor().numpy()  # noqa: E731
         outs = []
         for case in cases:
+            if "shard_vocab_embed" in case:
+                outs.append(_embed_case(mesh, case))
+                continue
             cfg = get_config(case["arch"], smoke=True).replace(**case["cfg"])
             params = lambda: tree_map(lambda a: torch.from_numpy(a.copy()), case["params"])  # noqa: E731
             opt = AdamW()
@@ -90,46 +94,33 @@ def _spmd_step_rank(rank, world, init_file, cases, out_q):
         dist.destroy_process_group()
 
 
-def _embed_rank(rank, world, init_file, cases, out_q):
-    """The embedding gather on a (2, 2) ``("data", "model")`` mesh over
-    ``world`` = 4 gloo ranks: per case (``shard_vocab_embed``, the table
-    ``w`` (V, d), ids ``(B, S)`` and an upstream gradient ``g``), the
-    table laid out by ``param_pspecs`` and the ids by ``batch_pspecs``,
-    ``model._embed`` forward, then ``(rows * g).sum()`` backward.  Returns
-    the rows, the table's gradient (both whole) and the table's spec."""
+def _embed_case(mesh, case):
+    """The embedding gather on ``mesh``: the table ``w`` (V, d) laid out by
+    ``param_pspecs`` (``case["shard_vocab_embed"]``) and ids ``(B, S)`` by
+    ``batch_pspecs``, ``model._embed`` forward, then ``(rows * g).sum()``
+    backward for an upstream gradient ``g``.  Returns the rows, the
+    table's gradient (both whole) and the table's spec."""
     import torch
-    import torch.distributed as dist
     from torch.distributed.tensor import DTensor, Replicate
 
     from repro_torch.configs import get_config
-    from repro_torch.launch.mesh import dp_axes, make_host_mesh
+    from repro_torch.launch.mesh import dp_axes
     from repro_torch.models import model as M
     from repro_torch.sharding.specs import batch_pspecs, distribute_tree, param_pspecs
 
-    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
-                            world_size=world)
-    try:
-        mesh = make_host_mesh(2, 2, device="cpu")
-        outs = []
-        for case in cases:
-            cfg = get_config("granite-3-8b", smoke=True).replace(
-                dtype="float32", shard_vocab_embed=case["shard_vocab_embed"])
-            params = {"embed": torch.from_numpy(case["w"].copy())}
-            spec = param_pspecs(cfg, params, mesh)
-            params = distribute_tree(params, spec, mesh)
-            w = params["embed"].detach().requires_grad_()
-            ids = {"t": torch.from_numpy(case["ids"])}
-            ids = distribute_tree(ids, batch_pspecs(ids, mesh, dp_axes(mesh)), mesh)["t"]
-            rows = M._embed(cfg, {"embed": w}, ids)
-            g = DTensor.from_local(torch.from_numpy(case["g"]), mesh, [Replicate()] * 2,
-                                   run_check=False)
-            (rows * g).sum().backward()
-            outs.append({"rows": rows.detach().full_tensor().numpy(),
-                         "grad": w.grad.full_tensor().numpy(),
-                         "spec": spec["embed"]})
-        out_q.put((rank, outs))
-    finally:
-        dist.destroy_process_group()
+    cfg = get_config("granite-3-8b", smoke=True).replace(
+        dtype="float32", shard_vocab_embed=case["shard_vocab_embed"])
+    params = {"embed": torch.from_numpy(case["w"].copy())}
+    spec = param_pspecs(cfg, params, mesh)
+    params = distribute_tree(params, spec, mesh)
+    w = params["embed"].detach().requires_grad_()
+    ids = {"t": torch.from_numpy(case["ids"])}
+    ids = distribute_tree(ids, batch_pspecs(ids, mesh, dp_axes(mesh)), mesh)["t"]
+    rows = M._embed(cfg, {"embed": w}, ids)
+    g = DTensor.from_local(torch.from_numpy(case["g"]), mesh, [Replicate()] * 2, run_check=False)
+    (rows * g).sum().backward()
+    return {"rows": rows.detach().full_tensor().numpy(), "grad": w.grad.full_tensor().numpy(),
+            "spec": spec["embed"]}
 
 
 def run_ranks(world, init_file, cases, timeout_s=60.0, target=_compressed_psum_rank):

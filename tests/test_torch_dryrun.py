@@ -128,3 +128,23 @@ def test_slstm_recurrent_products_are_counted():
         xlstm.slstm_scan(params, x, h, torch.float32)
     tokens = b * s
     assert rec.flops == 2 * tokens * d * 4 * d + 2 * tokens * 4 * d * hd + 2 * tokens * d * d
+
+
+def test_all_runs_each_cell_in_a_process_of_its_own(tmp_path):
+    """``--all`` (narrowed by ``--arch`` and ``--shape``) runs each cell in
+    a fresh process, side by side, and gathers every record into
+    ``--out``: whisper-tiny's full decode_32k on both fake meshes."""
+    out = tmp_path / "all.json"
+    run = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--all", "--arch",
+                          "whisper-tiny", "--shape", "decode_32k", "--mesh", "both", "--out",
+                          str(out)], env=dict(os.environ, PYTHONPATH=SRC), capture_output=True,
+                         text=True, timeout=300)
+    assert run.returncode == 0, run.stdout[-3000:] + run.stderr[-3000:]
+    records = json.loads(out.read_text())
+    assert sorted(records) == ["whisper-tiny|decode_32k|multi|tp|baseline",
+                               "whisper-tiny|decode_32k|single|tp|baseline"]
+    for r in records.values():
+        assert r["status"] == "ok" and r["kind"] == "decode"
+        assert r["chips"] == (512 if r["mesh"] == "multi" else 256)
+        assert r["flops_per_device"] > 0
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["all.json"]  # the cells' parts are gone
