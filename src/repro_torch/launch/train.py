@@ -108,7 +108,7 @@ def build_argparser():
                          "exit (open it in Perfetto)")
     ap.add_argument("--metrics-json", default="",
                     help="dump the metrics-registry snapshot (counters, "
-                         "gauges, latency histograms) as JSON here at exit")
+                         "latency histograms) as JSON here at exit")
     ap.add_argument("--drift-device", default="",
                     choices=["", "hdd", "ssd", "optane"],
                     help="also price measured vs modeled storage reads "

@@ -1,4 +1,4 @@
-"""Metrics registry: counters, gauges, log-bucketed latency histograms.
+"""Metrics registry: counters and log-bucketed latency histograms.
 
 One registry absorbs the stack's scattered counter structs — ``IOStats``
 (storage), ``TieredCache`` / ``LookaheadScheduler`` /
@@ -6,7 +6,7 @@ One registry absorbs the stack's scattered counter structs — ``IOStats``
 ``RemoteFetcher`` / ``Cluster`` (cross-host tier), ``PipelineStats``
 (Eq. 1) — behind a single snapshot/delta API:
 
-* **Own metrics**: :meth:`MetricsRegistry.counter` / ``gauge`` /
+* **Own metrics**: :meth:`MetricsRegistry.counter` /
   ``histogram`` create-or-get named instruments.  Histograms are
   log₂-bucketed from 1 µs (bucket *k* holds observations under
   ``1 µs · 2^k``) — wide enough for a DRAM gather and an HDD seek on the
@@ -18,10 +18,8 @@ One registry absorbs the stack's scattered counter structs — ``IOStats``
   the collector's prefix, so the five structs read as one namespace.
 * **Snapshot/delta**: :meth:`snapshot` is a point-in-time dict;
   :func:`delta` subtracts two snapshots (counters and histogram buckets
-  difference, gauges latest) — steady-state rates without resetting any
-  counter mid-run.
-* **Export**: :func:`to_prometheus` renders the text exposition format;
-  snapshots are plain JSON-serializable dicts.
+  difference) — steady-state rates without resetting any counter
+  mid-run.  Snapshots are plain JSON-serializable dicts.
 
 The hot path is one lock acquisition per observation at batch
 granularity (the repo-wide discipline: no per-record Python), so the
@@ -32,14 +30,13 @@ from __future__ import annotations
 
 import json
 import threading
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List
 
 import numpy as np
 
 # Histogram buckets: upper bounds 1us * 2^k.  30 buckets reach ~9 min.
 HIST_BASE_S = 1e-6
 HIST_BUCKETS = 30
-HIST_BOUNDS_S = [HIST_BASE_S * (1 << k) for k in range(HIST_BUCKETS - 1)]
 
 
 class Counter:
@@ -56,24 +53,6 @@ class Counter:
     def inc(self, amount: float = 1.0) -> None:
         with self._lock:
             self._value += amount
-
-    @property
-    def value(self) -> float:
-        return self._value
-
-
-class Gauge:
-    """Last-write-wins instantaneous value."""
-
-    __slots__ = ("name", "help", "_value")
-
-    def __init__(self, name: str, help: str = ""):
-        self.name = name
-        self.help = help
-        self._value = 0.0
-
-    def set(self, value: float) -> None:
-        self._value = float(value)
 
     @property
     def value(self) -> float:
@@ -123,25 +102,11 @@ class Histogram:
                 "buckets": [int(c) for c in self.counts],
             }
 
-    def quantile(self, q: float) -> float:
-        """Upper-bound estimate of the q-quantile from bucket counts."""
-        snap = self.snapshot()
-        if snap["count"] == 0:
-            return 0.0
-        target = q * snap["count"]
-        seen = 0
-        for i, c in enumerate(snap["buckets"]):
-            seen += c
-            if seen >= target:
-                return HIST_BOUNDS_S[min(i, len(HIST_BOUNDS_S) - 1)]
-        return HIST_BOUNDS_S[-1]
-
 
 class MetricsRegistry:
     def __init__(self):
         self._lock = threading.Lock()
         self._counters: Dict[str, Counter] = {}
-        self._gauges: Dict[str, Gauge] = {}
         self._histograms: Dict[str, Histogram] = {}
         self._collectors: List[tuple] = []  # (prefix, fn)
 
@@ -152,13 +117,6 @@ class MetricsRegistry:
             if c is None:
                 c = self._counters[name] = Counter(name, help)
             return c
-
-    def gauge(self, name: str, help: str = "") -> Gauge:
-        with self._lock:
-            g = self._gauges.get(name)
-            if g is None:
-                g = self._gauges[name] = Gauge(name, help)
-            return g
 
     def histogram(self, name: str, help: str = "") -> Histogram:
         with self._lock:
@@ -181,12 +139,10 @@ class MetricsRegistry:
     def snapshot(self) -> dict:
         with self._lock:
             counters = dict(self._counters)
-            gauges = dict(self._gauges)
             hists = dict(self._histograms)
             collectors = list(self._collectors)
         snap = {
             "counters": {n: c.value for n, c in counters.items()},
-            "gauges": {n: g.value for n, g in gauges.items()},
             "histograms": {n: h.snapshot() for n, h in hists.items()},
         }
         for prefix, fn in collectors:
@@ -199,15 +155,14 @@ class MetricsRegistry:
 
 
 def delta(new: dict, old: dict) -> dict:
-    """Snapshot difference: counters and histogram buckets subtract,
-    gauges take the newer value.  Gives steady-state windows (e.g. the
+    """Snapshot difference: counters and histogram buckets subtract.
+    Gives steady-state windows (e.g. the
     warm epochs of a run) without resetting live counters."""
     out = {
         "counters": {
             k: v - old.get("counters", {}).get(k, 0.0)
             for k, v in new.get("counters", {}).items()
         },
-        "gauges": dict(new.get("gauges", {})),
         "histograms": {},
     }
     for name, h in new.get("histograms", {}).items():
@@ -220,42 +175,6 @@ def delta(new: dict, old: dict) -> dict:
             "buckets": [a - b for a, b in zip(h["buckets"], o["buckets"])],
         }
     return out
-
-
-def _prom_name(name: str) -> str:
-    out = []
-    for ch in name:
-        out.append(ch if ch.isalnum() or ch == "_" else "_")
-    s = "".join(out)
-    return "_" + s if s[:1].isdigit() else s
-
-
-def to_prometheus(snapshot: dict) -> str:
-    """Render a snapshot in the Prometheus text exposition format."""
-    lines: List[str] = []
-    for name, v in sorted(snapshot.get("counters", {}).items()):
-        n = _prom_name(name)
-        lines.append(f"# TYPE {n} counter")
-        lines.append(f"{n} {v:g}")
-    for name, v in sorted(snapshot.get("gauges", {}).items()):
-        n = _prom_name(name)
-        lines.append(f"# TYPE {n} gauge")
-        lines.append(f"{n} {v:g}")
-    for name, h in sorted(snapshot.get("histograms", {}).items()):
-        n = _prom_name(name)
-        lines.append(f"# TYPE {n} histogram")
-        cum = 0
-        for i, c in enumerate(h["buckets"]):
-            cum += c
-            le = (
-                f"{HIST_BOUNDS_S[i]:.9g}"
-                if i < len(HIST_BOUNDS_S)
-                else "+Inf"
-            )
-            lines.append(f'{n}_bucket{{le="{le}"}} {cum}')
-        lines.append(f"{n}_sum {h['sum']:g}")
-        lines.append(f"{n}_count {h['count']}")
-    return "\n".join(lines) + "\n"
 
 
 # ------------------------------------------------------------ binders
@@ -322,18 +241,6 @@ def bind_fault_log(
         "eio_hits",
     )
     registry.register_collector(prefix, lambda: _num_fields(log, fields))
-
-
-def bind_remote(
-    registry: MetricsRegistry, remote_fetcher, prefix: str = "remote"
-) -> None:
-    fields = (
-        "remote_hits", "remote_hit_bytes", "remote_misses", "peer_errors",
-        "peer_failures",
-    )
-    registry.register_collector(
-        prefix, lambda: _num_fields(remote_fetcher, fields)
-    )
 
 
 def bind_pipeline(

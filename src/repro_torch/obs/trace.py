@@ -1,4 +1,5 @@
-"""Low-overhead trace recorder: spans + instants → Chrome trace JSON.
+"""Low-overhead trace recorder: a tree of spans and instants, on the
+profiler's clock, → Chrome trace JSON and windowed span lists.
 
 Design constraints:
 
@@ -8,21 +9,35 @@ Design constraints:
   registration and once per *new* event name at interning.  Ring slots
   wrap: when a ring fills, the oldest events are overwritten and counted
   in ``dropped`` — recording never blocks and never grows memory.
-* **Compiled out when disabled.**  The module-level ``_enabled`` flag
-  gates everything: :func:`span` returns a shared no-op singleton
-  (zero allocation, two trivial method calls), :func:`instant` returns
-  immediately.  :func:`timed` is the one variant that *always* measures
-  (``time.perf_counter_ns``) because callers feed its duration into
-  pipeline statistics — it still records an event only when enabled,
-  and reuses spans from a per-thread freelist so the steady state
-  allocates nothing in either mode.
-* **Monotonic clocks.**  All timestamps come from
-  ``time.perf_counter_ns`` — the same clock the pipeline's Eq. 1
-  accounting uses, so traces and stats can never disagree.
+* **Recording when asked for, or under a profiler.**  Events are recorded
+  after :func:`enable`, or while a ``torch.profiler`` session is collecting
+  in the process (one attribute read finds out), so a profile of the
+  program carries the program's own spans.  A profiler session gets a
+  fresh recorder at its first span, provided a span, an instant or
+  :func:`enabled` saw the previous session end.  Off,
+  :func:`span` returns a shared no-op singleton (zero allocation) and
+  :func:`instant` returns at once.  :func:`timed` is the one variant that
+  *always* measures (``time.perf_counter_ns``) because callers feed its
+  duration into their own statistics (the pipeline's Eq. 1, the serving
+  engine's prefill and decode seconds); it records an event only while
+  recording, and reuses spans from a per-thread freelist so the steady
+  state allocates nothing in either mode.  No ``record_function`` range is
+  emitted: Kineto would put each on the device's timeline.
+* **A tree.**  Every event gets an id and the id of the span open around
+  it on the same thread (0 at the top); callers put a request's id in
+  ``args`` to join the spans of one request.
+* **Two clocks, one mapping.**  Durations come from
+  ``time.perf_counter_ns`` — the clock the callers' statistics use.
+  Timestamps leave the recorder on the profiler's clock (Kineto's host
+  and device events: ns since the Unix epoch): the recorder pairs
+  ``time.time_ns`` with ``perf_counter_ns`` when it is made and again
+  whenever it is read, and maps stamps linearly between the two pairs,
+  so a slew of the wall clock over a run does not skew them.
 
-Export is the Chrome trace-event format (``{"traceEvents": [...]}``):
-open the file in https://ui.perfetto.dev or ``chrome://tracing``.
-Spans are complete events (``ph: "X"``) with microsecond ``ts``/``dur``;
+Export is the Chrome trace-event format (``{"traceEvents": [...]}``),
+with ``ts`` in microseconds since the epoch as Kineto writes it: open the
+file in https://ui.perfetto.dev beside a ``torch.profiler`` trace.  Spans
+are complete events (``ph: "X"``) carrying ``id`` and ``parent``;
 instants are ``ph: "i"``; thread names are emitted as ``M`` metadata so
 producer/consumer/prefetcher/peer lanes are labeled in the timeline.
 
@@ -38,15 +53,18 @@ Usage::
 """
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import threading
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
+import torch.autograd.profiler as _autograd_profiler
 
-# Event record: interned name/cat ids, phase, ns timestamp + duration.
+# Event record: interned name/cat ids, phase, perf_counter ns start +
+# duration, the event's id and the id of the span open around it.
 _EVENT_DTYPE = np.dtype(
     [
         ("name", np.uint32),
@@ -54,6 +72,8 @@ _EVENT_DTYPE = np.dtype(
         ("ph", np.uint8),
         ("ts", np.int64),
         ("dur", np.int64),
+        ("id", np.int64),
+        ("parent", np.int64),
     ]
 )
 _PH_COMPLETE = 0  # Chrome "X"
@@ -63,25 +83,45 @@ _PH_CHARS = {_PH_COMPLETE: "X", _PH_INSTANT: "i"}
 DEFAULT_RING_CAPACITY = 65536
 
 
+def _clock_pair() -> Tuple[int, int]:
+    """(``time.time_ns()``, the ``perf_counter_ns`` it was read at): the
+    wall clock between two monotonic reads, paired with their midpoint."""
+    p0 = time.perf_counter_ns()
+    wall = time.time_ns()
+    return wall, (p0 + time.perf_counter_ns()) // 2
+
+
+class SpanRecord(NamedTuple):
+    """A complete span on the profiler's clock (ns since the epoch)."""
+
+    name: str
+    start: int
+    end: int
+    id: int
+    parent: int
+    args: Optional[dict]
+
+
 class _ThreadRing:
     """One thread's preallocated event ring.  Only the owning thread
-    writes; :meth:`events` (drain/export) reads from any thread and is
-    *nearly* consistent — export at quiesce points for exact traces."""
+    writes; readers (drain/export/spans) read from any thread and are
+    *nearly* consistent — read at quiesce points for exact traces."""
 
     __slots__ = ("events_buf", "args_buf", "capacity", "idx", "tid", "tname")
 
     def __init__(self, capacity: int):
         self.capacity = capacity
-        self.events_buf = np.zeros(capacity, dtype=_EVENT_DTYPE)
+        self.events_buf = np.empty(capacity, dtype=_EVENT_DTYPE)  # read only once written
         self.args_buf: List[Optional[dict]] = [None] * capacity
         self.idx = 0  # monotonically increasing write position
         t = threading.current_thread()
         self.tid = t.ident or 0
         self.tname = t.name
 
-    def push(self, nid: int, cid: int, ph: int, ts: int, dur: int, args):
+    def push(self, nid: int, cid: int, ph: int, ts: int, dur: int, eid: int,
+             parent: int, args):
         i = self.idx % self.capacity
-        self.events_buf[i] = (nid, cid, ph, ts, dur)
+        self.events_buf[i] = (nid, cid, ph, ts, dur, eid, parent)
         self.args_buf[i] = args
         self.idx += 1
 
@@ -89,11 +129,11 @@ class _ThreadRing:
     def dropped(self) -> int:
         return max(0, self.idx - self.capacity)
 
-    def ordered_slots(self) -> range:
-        """Slot positions oldest→newest (handles wraparound)."""
-        if self.idx <= self.capacity:
-            return range(self.idx)
-        return range(self.idx - self.capacity, self.idx)
+    def ordered(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(slot indices, events) oldest→newest (handles wraparound)."""
+        lo = max(0, self.idx - self.capacity)
+        slots = np.arange(lo, self.idx) % self.capacity
+        return slots, self.events_buf[slots]
 
 
 class TraceRecorder:
@@ -101,7 +141,7 @@ class TraceRecorder:
 
     def __init__(self, capacity_per_thread: int = DEFAULT_RING_CAPACITY):
         self.capacity_per_thread = capacity_per_thread
-        self.t0_ns = time.perf_counter_ns()
+        self.anchor = _clock_pair()
         self.pid = os.getpid()
         self._lock = threading.Lock()
         self._rings: List[_ThreadRing] = []
@@ -137,38 +177,83 @@ class TraceRecorder:
             self._rings.append(ring)
         return ring
 
+    def _snapshot_rings(self) -> List[_ThreadRing]:
+        with self._lock:
+            return list(self._rings)
+
+    # ------------------------------------------------------------- clock
+    def _to_wall(self):
+        """A map of ``perf_counter_ns`` stamps (arrays) onto the profiler's
+        clock: linear between the anchor taken when the recorder was made
+        and one taken now."""
+        w0, p0 = self.anchor
+        w1, p1 = _clock_pair()
+        rate = (w1 - w0) / (p1 - p0) if p1 > p0 else 1.0
+        return lambda perf_ns: w0 + np.rint((perf_ns - p0) * rate).astype(np.int64)
+
     # ------------------------------------------------------------- drain
     @property
     def dropped(self) -> int:
-        with self._lock:
-            rings = list(self._rings)
-        return sum(r.dropped for r in rings)
+        return sum(r.dropped for r in self._snapshot_rings())
+
+    def lost(self, start_ns: int) -> int:
+        """Events overwritten that may have ended at or after ``start_ns``
+        (profiler clock): the drops of every ring whose oldest surviving
+        event ended after it (a ring holds events in the order they
+        ended, so its drops ended before that one)."""
+        to_wall, n = self._to_wall(), 0
+        for ring in self._snapshot_rings():
+            if ring.dropped:
+                _, ev = ring.ordered()
+                if int(to_wall(ev["ts"][:1])[0] + ev["dur"][0]) > start_ns:
+                    n += ring.dropped
+        return n
+
+    def spans(self, start_ns: int, end_ns: int) -> List[SpanRecord]:
+        """Every complete span that overlaps ``[start_ns, end_ns)`` on the
+        profiler's clock, clipped to it, ordered by start.  A span's
+        length is its measured duration, as ``duration_s`` gives it."""
+        to_wall, out = self._to_wall(), []
+        for ring in self._snapshot_rings():
+            slots, ev = ring.ordered()
+            start = to_wall(ev["ts"])
+            end = start + ev["dur"]
+            keep = np.nonzero((ev["ph"] == _PH_COMPLETE) & (end > start_ns)
+                              & (start < end_ns))[0]
+            for k in keep:
+                out.append(SpanRecord(
+                    self._names[int(ev["name"][k])],
+                    max(int(start[k]), start_ns), min(int(end[k]), end_ns),
+                    int(ev["id"][k]), int(ev["parent"][k]),
+                    ring.args_buf[int(slots[k])],
+                ))
+        out.sort(key=lambda s: s.start)
+        return out
 
     def drain(self) -> List[dict]:
         """All recorded events as Chrome trace-event dicts, sorted by
-        timestamp.  ``ts``/``dur`` are microseconds relative to
-        :func:`enable` time (Perfetto's native unit)."""
-        with self._lock:
-            rings = list(self._rings)
-        out: List[dict] = []
-        for ring in rings:
-            buf, args = ring.events_buf, ring.args_buf
-            for pos in ring.ordered_slots():
-                i = pos % ring.capacity
-                e = buf[i]
-                evt = {
+        timestamp.  ``ts`` is microseconds since the Unix epoch on the
+        profiler's clock, ``dur`` microseconds (Perfetto's native unit)."""
+        to_wall, out = self._to_wall(), []
+        for ring in self._snapshot_rings():
+            slots, ev = ring.ordered()
+            wall = to_wall(ev["ts"])
+            for k, e in enumerate(ev):
+                evt: Dict[str, Any] = {
                     "name": self._names[int(e["name"])],
                     "cat": self._cats[int(e["cat"])] or "default",
                     "ph": _PH_CHARS[int(e["ph"])],
-                    "ts": (int(e["ts"]) - self.t0_ns) / 1000.0,
+                    "ts": int(wall[k]) / 1000.0,
                     "pid": self.pid,
                     "tid": ring.tid,
+                    "id": int(e["id"]),
+                    "parent": int(e["parent"]),
                 }
                 if evt["ph"] == "X":
                     evt["dur"] = int(e["dur"]) / 1000.0
                 else:
                     evt["s"] = "t"  # thread-scoped instant
-                a = args[i]
+                a = ring.args_buf[int(slots[k])]
                 if a is not None:
                     evt["args"] = dict(a)
                 out.append(evt)
@@ -176,8 +261,6 @@ class TraceRecorder:
         return out
 
     def thread_metadata(self) -> List[dict]:
-        with self._lock:
-            rings = list(self._rings)
         return [
             {
                 "name": "thread_name",
@@ -186,7 +269,7 @@ class TraceRecorder:
                 "tid": r.tid,
                 "args": {"name": r.tname},
             }
-            for r in rings
+            for r in self._snapshot_rings()
         ]
 
     def to_chrome(self) -> dict:
@@ -207,10 +290,11 @@ class TraceRecorder:
 # ---------------------------------------------------------------- spans
 class Span:
     """A reusable timed region.  ``duration_s`` is valid after exit in
-    *both* modes — pipeline stats are fed from it — while the ring event
-    is recorded only when tracing was enabled at acquisition."""
+    *both* modes — callers' statistics are fed from it — while the ring
+    event is recorded only when recording at acquisition."""
 
-    __slots__ = ("name", "cat", "args", "_record", "_t0", "duration_s")
+    __slots__ = ("name", "cat", "args", "_record", "_t0", "_id", "_parent",
+                 "duration_s")
 
     def __init__(self):
         self.name = ""
@@ -218,9 +302,15 @@ class Span:
         self.args: Optional[dict] = None
         self._record = False
         self._t0 = 0
+        self._id = 0
+        self._parent = 0
         self.duration_s = 0.0
 
     def __enter__(self) -> "Span":
+        if self._record:
+            self._id = next(_ids)
+            self._parent = _tls.top
+            _tls.top = self._id
         self._t0 = time.perf_counter_ns()
         return self
 
@@ -228,21 +318,25 @@ class Span:
         t0 = self._t0
         dur = time.perf_counter_ns() - t0
         self.duration_s = dur * 1e-9
-        if self._record and _enabled:
-            _ring().push(
-                _recorder.name_id(self.name),
-                _recorder.cat_id(self.cat),
-                _PH_COMPLETE,
-                t0,
-                dur,
-                self.args,
-            )
+        if self._record:
+            _tls.top = self._parent
+            if enabled():
+                _ring().push(
+                    _recorder.name_id(self.name),
+                    _recorder.cat_id(self.cat),
+                    _PH_COMPLETE,
+                    t0,
+                    dur,
+                    self._id,
+                    self._parent,
+                    self.args,
+                )
         _tls.pool.append(self)
 
 
 class _NoopSpan:
-    """Shared zero-cost stand-in returned by :func:`span` when tracing
-    is disabled.  ``duration_s`` is always 0 — callers that need the
+    """Shared zero-cost stand-in returned by :func:`span` when not
+    recording.  ``duration_s`` is always 0 — callers that need the
     measurement regardless use :func:`timed`."""
 
     __slots__ = ()
@@ -263,13 +357,40 @@ class _Tls(threading.local):
         self.pool: List[Span] = []
         self.ring: Optional[_ThreadRing] = None
         self.gen = -1
+        self.top = 0  # id of the innermost open recorded span
 
 
 _tls = _Tls()
 _enabled = False
+_session = False  # the recorder belongs to the running profiler session
 _recorder: Optional[TraceRecorder] = None
 _generation = 0
 _state_lock = threading.Lock()
+_ids = itertools.count(1)
+
+
+def _begin_session() -> None:
+    global _recorder, _generation, _session
+    with _state_lock:
+        if not _session:
+            _recorder = TraceRecorder(DEFAULT_RING_CAPACITY)
+            _generation += 1
+            _session = True
+
+
+def enabled() -> bool:
+    """Whether events are recorded now (callers build ``args`` only
+    then): after :func:`enable`, or while a ``torch.profiler`` session is
+    collecting."""
+    global _session
+    if _enabled:
+        return True
+    if _autograd_profiler._is_profiler_enabled:
+        if not _session:
+            _begin_session()
+        return True
+    _session = False
+    return False
 
 
 def _ring() -> _ThreadRing:
@@ -290,25 +411,25 @@ def _acquire(name: str, cat: str, args, record: bool) -> Span:
 
 
 def span(name: str, cat: str = "", args: Optional[dict] = None):
-    """Trace a region.  No-op singleton (zero allocation) when tracing
-    is disabled — use where the duration is only needed for the trace."""
-    if not _enabled:
+    """Trace a region.  No-op singleton (zero allocation) when not
+    recording — use where the duration is only needed for the trace."""
+    if not enabled():
         return _NOOP
     return _acquire(name, cat, args, True)
 
 
 def timed(name: str, cat: str = "", args: Optional[dict] = None) -> Span:
-    """Trace a region whose ``duration_s`` the caller consumes (pipeline
-    Eq. 1 accounting).  Always measures on the monotonic clock; records
-    a trace event only when enabled.  Spans come from a per-thread
-    freelist, so the steady state allocates nothing in either mode."""
-    return _acquire(name, cat, args, _enabled)
+    """Trace a region whose ``duration_s`` the caller consumes.  Always
+    measures on the monotonic clock; records a trace event only while
+    recording.  Spans come from a per-thread freelist, so the steady
+    state allocates nothing in either mode."""
+    return _acquire(name, cat, args, enabled())
 
 
 def instant(name: str, cat: str = "", args: Optional[dict] = None) -> None:
     """Record a point event (retry, hedge, fault injection, eviction
-    burst...).  Free when disabled: one global flag check."""
-    if not _enabled:
+    burst...).  Free when not recording: a few flag reads."""
+    if not enabled():
         return
     _ring().push(
         _recorder.name_id(name),
@@ -316,6 +437,8 @@ def instant(name: str, cat: str = "", args: Optional[dict] = None) -> None:
         _PH_INSTANT,
         time.perf_counter_ns(),
         0,
+        next(_ids),
+        _tls.top,
         args,
     )
 
@@ -339,26 +462,19 @@ def disable() -> Optional[TraceRecorder]:
     return _recorder
 
 
-def resume() -> TraceRecorder:
-    """Re-enable recording into the *existing* recorder (fresh one only
-    if none exists yet).  Unlike :func:`enable` this keeps every
-    thread's already-faulted ring, so toggling around a measured region
-    costs a flag flip, not a ring reallocation."""
-    global _enabled, _recorder, _generation
-    with _state_lock:
-        if _recorder is None:
-            _recorder = TraceRecorder(DEFAULT_RING_CAPACITY)
-            _generation += 1
-        _enabled = True
-    return _recorder
-
-
-def enabled() -> bool:
-    return _enabled
-
-
 def get_recorder() -> Optional[TraceRecorder]:
     return _recorder
+
+
+def window_spans(start_ns: int, end_ns: int) -> Optional[List[SpanRecord]]:
+    """The current recorder's spans in ``[start_ns, end_ns)`` on the
+    profiler's clock (:meth:`TraceRecorder.spans`); None where there is
+    no recorder, or where its rings overwrote events the window may have
+    held."""
+    rec = _recorder
+    if rec is None or rec.lost(start_ns):
+        return None
+    return rec.spans(start_ns, end_ns)
 
 
 class tracing:

@@ -23,13 +23,29 @@ The arena lives on the parameters' device and is updated in place.  The
 host waits on the device at exactly two points, as the JAX engine does:
 the first token of an admission (``.item()``) and the step's next tokens
 (``.cpu()``).  Beyond the JAX engine's counters, ``prefill_seconds`` and
-``decode_seconds`` sum host-clock time over admissions and decode steps,
-each ending at its sync, so they are device-inclusive.
+``decode_seconds`` sum the durations of the ``serve/prefill`` and
+``serve/decode`` spans (``trace.timed``: measured always, recorded when
+tracing or under a profiler), each ending at its sync, so they are
+device-inclusive.  Spans, all of category ``serve``:
+
+* ``serve/step`` — one :meth:`ServeEngine.step`: admit, decode, retire.
+* ``serve/admit`` — one admission, from its start (the feature fetch
+  included) to the first token on the host; ``args``: ``rid``,
+  ``queued_s`` (the clock at admission start less the request's arrival).
+* ``serve/prefill`` (in ``serve/admit``) — the prefill, the slot write
+  and the first token's sync; ``args``: ``rid``, ``tokens`` (the prompt's
+  length), ``padded`` (``prompt_capacity``, what the prefill ran).
+* ``serve/decode`` — one decode step over the arena and its tokens' sync.
+* ``serve/prefill/sync``, ``serve/decode/sync`` (children) — the
+  ``argmax`` and the copy to the host: their parent's time less theirs is
+  the host's time to enqueue the work.
+
+A request's first token is stamped from the engine's clock once it is on
+the host; ``admitted`` when its admission starts.
 """
 from __future__ import annotations
 
 import dataclasses
-import time
 from collections import deque
 from typing import Deque, Dict, List, Optional
 
@@ -173,24 +189,30 @@ class ServeEngine:
 
     def _admit_one(self, req: Request, slot: int) -> None:
         now = self.clock.now()
-        if self.feature_cache is not None and req.feature_ids is not None:
-            self.feature_cache.fetch(req.feature_ids, now)
-        padded = np.zeros((1, self.prompt_capacity), np.int32)
-        padded[0, : len(req.prompt)] = req.prompt
-        t0 = time.perf_counter()
-        with _trace.span("serve/prefill", "serve"):
-            pre, logits = self._prefill(padded, len(req.prompt))
-            self.arena = model_lib.write_prefill_slot(self.cfg, self.arena, slot, pre)
-        first = int(torch.argmax(logits[0], -1).item())
-        self.prefill_seconds += time.perf_counter() - t0
+        on = _trace.enabled()
+        admit_args = {"rid": req.rid, "queued_s": now - req.arrival} if on else None
+        prefill_args = ({"rid": req.rid, "tokens": len(req.prompt),
+                         "padded": self.prompt_capacity} if on else None)
+        with _trace.span("serve/admit", "serve", args=admit_args):
+            if self.feature_cache is not None and req.feature_ids is not None:
+                self.feature_cache.fetch(req.feature_ids, now)
+            padded = np.zeros((1, self.prompt_capacity), np.int32)
+            padded[0, : len(req.prompt)] = req.prompt
+            with _trace.timed("serve/prefill", "serve", args=prefill_args) as sp:
+                pre, logits = self._prefill(padded, len(req.prompt))
+                self.arena = model_lib.write_prefill_slot(self.cfg, self.arena, slot, pre)
+                with _trace.span("serve/prefill/sync", "serve"):
+                    first = int(torch.argmax(logits[0], -1).item())
+            self.prefill_seconds += sp.duration_s
+        first_token = self.clock.now()
         self._cur[slot, 0] = first
         self.slots[slot] = _Slot(
-            request=req, tokens=[first], admitted=now, first_token=now
+            request=req, tokens=[first], admitted=now, first_token=first_token
         )
         self.prefills += 1
         self.generated_tokens += 1
         if self._finished(self.slots[slot]):
-            self._retire(slot, now)
+            self._retire(slot, first_token)
 
     def _admit(self) -> int:
         admitted = 0
@@ -226,27 +248,28 @@ class ServeEngine:
 
     def step(self) -> None:
         """One engine step: admit, decode the whole arena once, retire."""
-        self._admit()
-        if self.slots:
-            t0 = time.perf_counter()
-            with _trace.span("serve/decode", "serve"):
-                logits = self._decode()
-            nxt = torch.argmax(logits, -1).to(torch.int32).cpu().numpy().reshape(-1)
-            self.decode_seconds += time.perf_counter() - t0
-            self.decode_steps += 1
-            self.clock.advance(1.0)
-            done = self.clock.now()
-            for slot in list(self.slots):
-                tok = int(nxt[slot])
-                self._cur[slot, 0] = tok
-                s = self.slots[slot]
-                s.tokens.append(tok)
-                self.generated_tokens += 1
-                if self._finished(s):
-                    self._retire(slot, done)
-        else:
-            self.clock.advance(1.0)
-        self.steps += 1
+        with _trace.span("serve/step", "serve"):
+            self._admit()
+            if self.slots:
+                with _trace.timed("serve/decode", "serve") as sp:
+                    logits = self._decode()
+                    with _trace.span("serve/decode/sync", "serve"):
+                        nxt = torch.argmax(logits, -1).to(torch.int32).cpu().numpy().reshape(-1)
+                self.decode_seconds += sp.duration_s
+                self.decode_steps += 1
+                self.clock.advance(1.0)
+                done = self.clock.now()
+                for slot in list(self.slots):
+                    tok = int(nxt[slot])
+                    self._cur[slot, 0] = tok
+                    s = self.slots[slot]
+                    s.tokens.append(tok)
+                    self.generated_tokens += 1
+                    if self._finished(s):
+                        self._retire(slot, done)
+            else:
+                self.clock.advance(1.0)
+            self.steps += 1
 
     def warmup(self) -> None:
         """Run the prefill/slot-insert/decode path once before measured

@@ -17,7 +17,7 @@ from repro_torch.configs.granite_3_8b import smoke_config
 from repro_torch.models import model as model_lib
 from repro_torch.models.weights import params_from_jax
 from repro_torch.obs import trace
-from repro_torch.serve import Request, ServeEngine, synthetic_workload
+from repro_torch.serve import Request, ServeEngine, StepClock, synthetic_workload
 
 
 @pytest.fixture(scope="module")
@@ -143,6 +143,61 @@ def test_arena_allocated_exactly_once(cfg, params):
     assert len(decodes) == eng.decode_steps > 0
     t0 = allocs[0]["ts"]
     assert all(e["ts"] >= t0 for e in prefills + decodes)
+
+
+def test_engine_seconds_are_its_spans_and_each_has_its_sync(cfg, params):
+    """``prefill_seconds`` and ``decode_seconds`` are the sums of the
+    ``serve/prefill`` and ``serve/decode`` spans' durations (one clock);
+    each of those spans holds its sync; a prefill lies in its admission,
+    which carries the request's id and its wait, and a decode in a step."""
+    rec = trace.enable()
+    try:
+        eng = _engine(cfg, params)
+        reqs = _workload(cfg, 10, load=1.2, seed=2)
+        eng.run(reqs)
+    finally:
+        trace.disable()
+    spans = rec.spans(0, 2 ** 63 - 1)
+    by_id = {s.id: s for s in spans}
+    named = {n: [s for s in spans if s.name == n] for n in (
+        "serve/step", "serve/admit", "serve/prefill", "serve/prefill/sync",
+        "serve/decode", "serve/decode/sync")}
+    assert len(named["serve/step"]) == eng.steps
+    assert len(named["serve/prefill"]) == eng.prefills == 10
+    assert len(named["serve/decode"]) == eng.decode_steps > 0
+    for name, total in (("serve/prefill", eng.prefill_seconds),
+                        ("serve/decode", eng.decode_seconds)):
+        assert sum(s.end - s.start for s in named[name]) * 1e-9 == pytest.approx(total, rel=1e-12)
+        syncs = [s for s in named[f"{name}/sync"] if by_id[s.parent].name == name]
+        assert sorted(s.parent for s in syncs) == sorted(s.id for s in named[name])
+    prompt = {r.rid: len(r.prompt) for r in reqs}
+    arrival = {r.rid: r.arrival for r in reqs}
+    for p in named["serve/prefill"]:
+        admit = by_id[p.parent]
+        assert admit.name == "serve/admit" and admit.args["rid"] == p.args["rid"]
+        assert p.args["tokens"] == prompt[p.args["rid"]] and p.args["padded"] == eng.prompt_capacity
+        assert admit.args["queued_s"] >= 0.0 and by_id[admit.parent].name == "serve/step"
+    assert sorted(a.args["rid"] for a in named["serve/admit"]) == sorted(arrival)
+    assert all(by_id[d.parent].name == "serve/step" for d in named["serve/decode"])
+
+
+def test_first_token_stamped_when_it_is_on_the_host(cfg, params):
+    """The first token's stamp is read from the engine's clock after its
+    sync: a clock that moves during the prefill moves the stamp."""
+    clock = StepClock()
+    eng = _engine(cfg, params, clock=clock)
+    prefill = eng._prefill
+
+    def slow_prefill(*args):
+        clock.advance(0.25)
+        return prefill(*args)
+
+    eng._prefill = slow_prefill
+    reqs = [Request(rid=0, prompt=np.arange(1, 4, dtype=np.int32), max_new_tokens=3),
+            Request(rid=1, prompt=np.arange(1, 6, dtype=np.int32), max_new_tokens=1)]
+    got = {c.rid: c for c in eng.run(reqs)}
+    assert got[0].first_token == 0.25 and got[0].finished > got[0].first_token
+    assert got[1].first_token == got[1].finished == 0.5  # admitted second, done at once
 
 
 def test_arena_storage_static_across_run(cfg, params):
