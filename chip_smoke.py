@@ -36,7 +36,14 @@
    64) and its cross-attention's q (8, 384, 6, 64) against (8, 1,500, 6,
    64), K6 on its 1,500-frame cross cache at cur = T - 1, T - 2, 0 and
    past T, in bf16 and f32, the three bf16 calls timed (the rows'
-   ``whisper``).
+   ``whisper``).  Then the training path's causal attention
+   (``ops.CausalAttention``: the forward with its log-sum-exp and the
+   fused backward) against the masked sdpa's autograd in f32 from the same
+   bf16 inputs at granite-3-8b's training shape, ragged S, groups 1, 4, 8
+   and D 64, no further from f32 than the plain bf16 route; two backwards
+   bit-equal; both timed beside their bounds, the plain route and SDPA
+   (the row ``flash_attention_train``; its launches in qwen2-moe-a2.7b's
+   training phase, once a layer and step each).
 4. Holds the port's model on the card against the same model on the CPU
    (plain kernel versions) at smoke size, in float32 (granite; whisper
    with its frames and qwen2-vl with ``positions_3d``: loss, gradients,
@@ -190,8 +197,9 @@
    ``dec_attn`` layers, d_model 384, 6 heads of 64, 56,355,840
    parameters; random frames, the conv frontend a stub as in the JAX
    package): 8 training steps through ``make_train_step`` (B 8, 1,500
-   frames, 448 tokens; finite losses, encoder gradients non-zero, no
-   launch); then prefill 8 x 384 tokens with the frames, ``extend_cache``
+   frames, 448 tokens; finite losses, encoder gradients non-zero, the
+   training attention's launches alone, one each a decoder layer and
+   step); then prefill 8 x 384 tokens with the frames, ``extend_cache``
    by 64 and 64 greedy decode steps: 12 K4 launches a prefill, all on the
    tensor-core kernel, 8 K6 launches a step, all on the cluster kernel, the
    cross K/V unchanged by decode; prefill ms, decode ms a step, tokens/s,
@@ -318,6 +326,16 @@ PREFILL_HEADS = ((16, 16), (24, 8), (48, 8))
 STABLELM_ARCH, STABLELM_HEADS, STABLELM_D = "stablelm-12b", (32, 8), 160
 
 LONG_CONTEXT = 4096  # granite-3-8b's context: flash_attention's second timed shape
+# the training path's causal attention (ops.CausalAttention): granite-3-8b's
+# training shape first (seq 4,096, 32 query heads on 8 KV heads, D 128),
+# then ragged S, groups 1 / 4 / 8 and D 64, then the other shapes the main
+# paths send it: qwen2-moe-a2.7b's (16 heads, group 1) and whisper-tiny's
+# decoder self-attention (batch 8 of 448 tokens, 6 heads, D 64), and a
+# batch of 2 at granite's heads; (B, S, H, K, D)
+TRAIN_ATTN_SHAPES = ((1, 4096, 32, 8, 128), (1, 65, 32, 8, 128), (1, 1000, 32, 8, 128),
+                     (1, 1000, 8, 8, 128), (1, 1000, 64, 8, 128), (1, 65, 8, 2, 64),
+                     (1, 1000, 32, 8, 64), (1, 4096, 16, 16, 128), (8, 448, 6, 6, 64),
+                     (2, 1000, 32, 8, 128))
 
 # recurrentgemma-2b's prefill and decode at published width and depth: 4
 # prompts of two windows (the chunked local attention and the ring's
@@ -514,17 +532,21 @@ def _profiled(fn, steps, **kw):
 # the kernels redesigned for Hopper (mangled-name fragments) and the
 # instructions that show they use the tensor cores and bulk copies: SASS
 # from cuobjdump where the toolkit has it, else PTX from nvcc -ptx
-NEW_KERNELS = ("fa_wgmma_kernel", "fa_wgmma_kernelILi160E", "gather_bulk_kernel",
+NEW_KERNELS = ("fa_wgmma_kernel", "fa_wgmma_kernelILi160E", "fa_train_fwd_kernel",
+               "fa_bwd_kv_kernel", "fa_bwd_dq_kernel", "gather_bulk_kernel",
                "gather_staged_kernel", "fd_cluster_kernel", "fd_cluster_kernelILi256E",
                "fd_cluster_kernel_1smILi160E", "scan_ring_kernel", "gather_tables_kernel",
                "csr_dot_kernel")
 SASS_OPS = {"fa_wgmma_kernel": ("HGMMA", "UTMALDG"), "gather_bulk_kernel": ("UBLKCP",),
+            "fa_train_fwd_kernel": ("HGMMA", "UTMALDG"),
+            "fa_bwd_kv_kernel": ("HGMMA", "UTMALDG"), "fa_bwd_dq_kernel": ("HGMMA", "UTMALDG"),
             "fd_cluster_kernel": ("LDGSTS", "HMMA"), "scan_ring_kernel": ("UTMALDG", "UTMASTG"),
             "gather_tables_kernel": ("LDC",),
             # the head dim 160 instantiations on their own
             "fa_wgmma_kernelILi160E": ("HGMMA", "UTMALDG"),
             "fd_cluster_kernel_1smILi160E": ("LDGSTS", "HMMA")}
 PTX_OPS = {"flash_attention_wgmma.cu": ("wgmma.mma_async", "cp.async.bulk.tensor"),
+           "flash_attention_bwd.cu": ("wgmma.mma_async", "cp.async.bulk.tensor"),
            "batch_gather.cu": ("cp.async.bulk.shared", "cp.async.bulk.global"),
            "flash_decode_cluster.cu": ("cp.async.cg.shared.global", "mapa",
                                        "mma.sync.aligned.m16n8k16"),
@@ -766,6 +788,165 @@ def decode_sweep(dev):
                     TOL[str(dt)])
             cases += 1
     print(f"  {cases} decode cases within tolerance")
+
+
+def _rel(got, want):
+    """||got - want|| / ||want||, in f32."""
+    got, want = got.float(), want.float()
+    return float((got - want).norm() / want.norm().clamp(min=1e-30))
+
+
+def train_attention_phase(dev):
+    """The training path's causal attention on the card (``ops.
+    CausalAttention``: the training forward with its log-sum-exp and the
+    fused backward) against the masked ``sdpa``'s autograd in f32 from the
+    same bf16 inputs, at ``TRAIN_ATTN_SHAPES``; the plain route (that
+    ``sdpa``'s autograd in bf16, what the path ran before) is held to the
+    same reference beside it, and the kernels may stray from it by no more
+    than 1.25 x the plain route's error (or 2e-3, relative, where that is
+    smaller), in the worst batch row: no further from f32 than the path
+    they replace.  Then the
+    backward twice, bit-equal (dQ is written once per row, no atomics),
+    and one launch each a call.  Times both kernels at granite-3-8b's
+    shape beside their bounds (operations: 4 x and 10 x the causal pairs x
+    H x D at the bf16 peak), the plain route's forward and backward and,
+    as a yardstick only, SDPA's.  Returns the kernel table's row."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+    from repro_torch.layers.attention import causal_mask
+    from repro_torch.layers.sdpa import sdpa
+
+    print("training attention (ops.CausalAttention) vs the masked sdpa's autograd in f32:")
+    _free()
+    # autograd's device thread takes its cuBLAS workspace now, in a segment of its own: carved
+    # from the f32 scores' below it would pin gigabytes for the rest of the run
+    w = torch.ones(16, 16, device=dev, requires_grad=True)
+    (w @ w).sum().backward()
+    g = torch.Generator(device=dev).manual_seed(30)
+    errs = {}
+    for bt, s, h, kh, d in TRAIN_ATTN_SHAPES:
+        label = f"B {bt}, S {s}, H {h}, K {kh}, D {d}"
+        check(ops._train_attention_kernel("cuda", torch.bfloat16, d, h // kh, s, s) == "fused",
+              f"{label} does not route to the training kernels")
+        q = torch.randn(bt, s, h, d, generator=g, device=dev).to(torch.bfloat16)
+        k, v = (torch.randn(bt, s, kh, d, generator=g, device=dev).to(torch.bfloat16)
+                for _ in range(2))
+        do = torch.randn(bt, s, h, d, generator=g, device=dev).to(torch.bfloat16)
+        mask = causal_mask(s, s, device=dev)
+
+        def grads(dt):
+            xs = [x.to(dt, copy=True).requires_grad_() for x in (q, k, v)]
+            o = sdpa(*xs, mask=mask)
+            return (o.detach(), *torch.autograd.grad(o, xs, do.to(dt)))
+
+        want = grads(torch.float32)
+        plain = grads(torch.bfloat16)
+        ops.reset_launch_counts()
+        xs = [x.clone().requires_grad_() for x in (q, k, v)]
+        o = ops.CausalAttention.apply(*xs)
+        got = (o.detach(), *torch.autograd.grad(o, xs, do))
+        torch.cuda.synchronize()
+        check(ops.LAUNCHES["flash_attention_train"] == 1 and ops.LAUNCHES["flash_attention_bwd"] == 1,
+              f"one call launched {ops.LAUNCHES}")
+        _, lse = ops.flash_attention_train(q, k, v)
+        qf, kf = q.float(), k.float().repeat_interleave(h // kh, dim=2)
+        sc = torch.einsum("bshd,bthd->bhst", qf, kf) / (d ** 0.5)
+        want_lse = torch.logsumexp(torch.where(mask, sc, -1e30), dim=-1)
+        del sc
+        lse_err = float((lse - want_lse).abs().max())
+        row = {"lse_max_abs_err": lse_err}
+        for name, a, p_, w in zip(("o", "dq", "dk", "dv"), got, plain, want):
+            # the worst batch row's: a fault in one row's offsets shows whatever the batch
+            row[name] = tuple(max(_rel(x[i], w[i]) for i in range(bt)) for x in (a, p_))
+        print(f"  {label}: lse max_abs_err {lse_err:.3e}; relative error (kernel, plain bf16) "
+              + ", ".join(f"{n} {row[n][0]:.3e} / {row[n][1]:.3e}" for n in ("o", "dq", "dk", "dv")))
+        check(lse_err < 1e-3, f"{label}: lse off by {lse_err}")
+        for n in ("o", "dq", "dk", "dv"):
+            check(row[n][0] <= max(1.25 * row[n][1], 2e-3),
+                  f"{label}: {n} strays {row[n][0]:.3e} from f32, the plain route {row[n][1]:.3e}")
+        compare(f"{label} o", got[0], want[0], 2e-2, show=False)
+        errs[label] = row
+        del want, plain, got, o, xs
+
+    _, s, h, kh, d = TRAIN_ATTN_SHAPES[0]
+    q = torch.randn(1, s, h, d, generator=g, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn(1, s, kh, d, generator=g, device=dev).to(torch.bfloat16) for _ in range(2))
+    do = torch.randn(1, s, h, d, generator=g, device=dev).to(torch.bfloat16)
+    o, lse = ops.flash_attention_train(q, k, v)
+    first = ops.flash_attention_bwd(q, k, v, o, lse, do)
+    again = ops.flash_attention_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(first, again)), "two backwards differ")
+    print("  two backwards at granite-3-8b's shape: bit-equal")
+
+    mask = causal_mask(s, s, device=dev)
+    xs = [x.clone().requires_grad_() for x in (q, k, v)]
+    lib = [x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v)]
+    dol = do.transpose(1, 2).contiguous()
+
+    def plain():
+        out = sdpa(*xs, mask=mask)
+        torch.autograd.grad(out, xs, do)
+
+    def library():
+        out = F.scaled_dot_product_attention(*lib, is_causal=True, enable_gqa=True)
+        torch.autograd.grad(out, lib, dol)
+
+    t = event_ms({
+        "forward": lambda: ops.flash_attention_train(q, k, v),
+        "backward": lambda: ops.flash_attention_bwd(q, k, v, o, lse, do),
+        "plain": plain,
+        "library": library,
+    })
+    pairs = s * (s + 1) // 2
+    fwd = bound(2 * (3 * q.numel() + 2 * k.numel()) + 4 * lse.numel(), 4 * pairs * h * d,
+                BF16_FLOPS)
+    bwd = bound(2 * (5 * q.numel() + 4 * k.numel()) + 8 * lse.numel(), 10 * pairs * h * d,
+                BF16_FLOPS)
+    print(f"  granite-3-8b's shape: device ms a call {t}; forward bound {fwd['bound_ms']:.4f} ms "
+          f"({fwd['bound_by']}), backward (five products) {bwd['bound_ms']:.4f} ms "
+          f"({bwd['bound_by']}); kernels {t['forward'] + t['backward']:.4f} ms against the plain "
+          f"route's {t['plain']:.4f} (forward and backward)")
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            ops.flash_attention_bwd(q, k, v, o, lse, do)
+        torch.cuda.synchronize()
+    for e in prof.key_averages():
+        if "fa_bwd" in e.key:
+            print(f"  {e.key[:60]}: {e.device_time_total / e.count / 1e3:.4f} ms a call")
+    return dict(name="flash_attention_train", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_attention_wgmma.cu "
+                       "(fa_train_fwd_kernel), flash_attention_bwd.cu",
+                replaces="none (the JAX package's training attention is jnp)",
+                ms=t["forward"], bound_ms=fwd["bound_ms"], bound_by=fwd["bound_by"],
+                bwd_ms=t["backward"], bwd_bound_ms=bwd["bound_ms"], plain_ms=t["plain"],
+                library_ms=t["library"], errors=errs)
+
+
+def event_ms(fns, n=10, rounds=3):
+    """Device time per call by CUDA events around ``n`` eager calls, after
+    one warm-up call each; median over rounds, the functions in turns.
+    ``time_ms``'s graphs do not suit autograd's backward and cuBLAS: a
+    workspace cuBLAS allocates inside a capture keeps the graph's memory
+    pool, gigabytes at these shapes, from ever being freed.  Each call
+    here is long enough that the host's enqueue hides behind the device."""
+    for f in fns.values():
+        f()
+    torch.cuda.synchronize()
+    samples = {k: [] for k in fns}
+    order = list(fns)
+    for r in range(rounds):
+        for k in (order if r % 2 == 0 else order[::-1]):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(n):
+                fns[k]()
+            stop.record()
+            torch.cuda.synchronize()
+            samples[k].append(start.elapsed_time(stop) / n)
+    return {k: statistics.median(v) for k, v in samples.items()}
 
 
 def gather_kernel_phase(dev):
@@ -2743,11 +2924,14 @@ def moe_train_phase(dev):
     (``reduced``: 2.9 B parameters, ~46 GB of f32 weights and AdamW state),
     seq MOE_TRAIN_SEQ, batch 1, the default ``remat="dots"``,
     MOE_TRAIN_STEPS steps through ``make_train_step`` on one batch: finite
-    losses and gradient norms, an aux loss above 0 on every step; prints
-    the step seconds and the peak memory."""
+    losses and gradient norms, an aux loss above 0 on every step, and the
+    training attention kernels launched once a layer and step each (group
+    1, D 128: ``ops.CausalAttention``); prints the step seconds and the
+    peak memory.  Returns those launches."""
     import math
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
     from repro_torch.train.optimizer import AdamW, AdamWConfig
     from repro_torch.train.steps import init_train_state, make_train_step
     from repro_torch.utils.tree import tree_leaves
@@ -2765,6 +2949,7 @@ def moe_train_phase(dev):
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
     print(f"training {MOE_ARCH} at full width, {MOE_TRAIN_LAYERS} of {full.num_layers} layers "
           f"({n_params:,} parameters), seq {MOE_TRAIN_SEQ}, batch 1, remat {cfg.remat!r}:")
+    before = dict(ops.LAUNCHES)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     losses, auxes, norms, secs = [], [], [], []
@@ -2783,8 +2968,15 @@ def moe_train_phase(dev):
           f"{med:.4f} s ({MOE_TRAIN_SEQ / med:.0f} tokens/s); peak memory {peak:.2f} GiB")
     check(all(math.isfinite(x) for x in losses + norms), "a loss or gradient norm is not finite")
     check(all(a > 0 for a in auxes), f"aux losses {auxes}")
+    launches = {k: ops.LAUNCHES[k] - before[k] for k in ("flash_attention_train",
+                                                        "flash_attention_bwd")}
+    want = MOE_TRAIN_LAYERS * MOE_TRAIN_STEPS  # group 1, D 128: the training kernels
+    print(f"  training attention launches {launches} ({MOE_TRAIN_LAYERS} layers x "
+          f"{MOE_TRAIN_STEPS} steps each)")
+    check(all(n == want for n in launches.values()), f"training attention launches {launches}")
     del state, out
     _free()
+    return launches
 
 
 def copied_configs_phase(dev):
@@ -3511,9 +3703,11 @@ def whisper_train_phase(dev):
     bf16 compute, AdamW, ``remat="dots"``) for WHISPER_TRAIN_STEPS steps
     through ``make_train_step``, B = 8 over 1,500 frames and 448 tokens:
     finite losses, every encoder leaf's gradient non-zero (read from the
-    first moments after step 1), and no kernel launch (training attention
-    is the plain ``sdpa``, as JAX's); prints the step times and the peak
-    memory."""
+    first moments after step 1), and no kernel launch but the training
+    attention's, once forward and once backward a decoder layer and step
+    (its causal self-attention, bf16 at D 64 and group 1, runs
+    ``ops.CausalAttention``; the encoder's and the cross-attention run the
+    plain ``sdpa``, as JAX's); prints the step times and the peak memory."""
     import math
 
     from repro_torch.configs import get_config
@@ -3554,7 +3748,9 @@ def whisper_train_phase(dev):
           f"{WHISPER_BATCH * cfg.encoder.num_frames / med:.0f} frames/s); peak memory {peak:.2f} GiB; "
           f"launches {dict(ops.LAUNCHES)}")
     check(all(math.isfinite(x) for x in losses), "a whisper-tiny loss is not finite")
-    check(all(v == 0 for v in ops.LAUNCHES.values()), f"training launched kernels {ops.LAUNCHES}")
+    want = cfg.num_layers * WHISPER_TRAIN_STEPS
+    check(all(v == (want if k in ("flash_attention_train", "flash_attention_bwd") else 0)
+              for k, v in ops.LAUNCHES.items()), f"training launched kernels {ops.LAUNCHES}")
     del state, out
     _free()
 
@@ -4012,6 +4208,7 @@ def main() -> int:
     instruction_counts(lib)
 
     rows = kernel_phase(dev)
+    rows.append(train_attention_phase(dev))
     whisper_kernels = whisper_kernel_phase(dev)
     wide_decode = decode256_phase(dev)
     gathers = gather_kernel_phase(dev)
@@ -4062,7 +4259,7 @@ def _card_phases(dev, rows, gathers, scans, wide_decode, whisper_kernels, dryrun
     t0 = time.perf_counter()
     moe_launches = moe_serve_phase(dev)
     moe_checks_phase(dev)
-    moe_train_phase(dev)
+    moe_train_launches = moe_train_phase(dev)
     print(f"MoE phases {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     stablelm_launches = stablelm_serve_phase(dev)
@@ -4094,6 +4291,8 @@ def _card_phases(dev, rows, gathers, scans, wide_decode, whisper_kernels, dryrun
             row["spmd_launches"] = spmd_launches[row["name"]]
         if row["name"] == "flash_decode":
             row["head_dim_256"] = dict(wide_decode, launches=rg_launches["flash_decode"])
+        if row["name"] == "flash_attention_train":
+            row["qwen2_moe_train_launches"] = moe_train_launches
         if row["name"] in ("flash_attention", "flash_decode"):
             row["qwen2_moe_serve_launches"] = moe_launches[row["name"]]
             row["head_dim_160"]["stablelm_serve_launches"] = stablelm_launches[row["name"]]
@@ -4108,7 +4307,8 @@ def _card_phases(dev, rows, gathers, scans, wide_decode, whisper_kernels, dryrun
             "plain_ms", "bound_ms", "bound_by", "library_ms", "context_4096", "head_dim_160",
             "head_dim_256", "qwen2_moe_serve_launches", "whisper", "b1_ms",
             "device_ids_ms", "device_ids_bound_ms", "bandwidth_ms", "multihost_train_launches",
-            "compression_launches", "spmd_launches")
+            "compression_launches", "spmd_launches", "bwd_ms", "bwd_bound_ms",
+            "qwen2_moe_train_launches")
     print(smi)  # the card again, beside the numbers: a long run's head may be cut off
     print(json.dumps({"kernels": [{k: row[k] for k in keys if k in row} for row in rows]}))
     print(json.dumps({"ok": True, "device": {

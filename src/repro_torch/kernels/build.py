@@ -21,9 +21,10 @@ import tempfile
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("flash_attention.cu", "flash_attention_wgmma.cu", "flash_decode.cu",
-           "flash_decode_cluster.cu", "csr_dot.cu", "batch_gather.cu", "rglru_scan.cu")
-HEADERS = ("attention_tile.cuh", "hopper_async.cuh")
+SOURCES = ("flash_attention.cu", "flash_attention_wgmma.cu", "flash_attention_bwd.cu",
+           "flash_decode.cu", "flash_decode_cluster.cu", "csr_dot.cu", "batch_gather.cu",
+           "rglru_scan.cu")
+HEADERS = ("attention_tile.cuh", "hopper_async.cuh", "wgmma.cuh")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 LIB_NAME = "librepro_torch_kernels.so"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -47,6 +48,8 @@ _T = ctypes.POINTER(GatherTable)
 _SIGNATURES = {
     "repro_torch_flash_attention": [_P, _P, _P, _P] + [_I] * 8 + [_P],
     "repro_torch_flash_attention_wgmma": [_P, _P, _P, _P] + [_I] * 7 + [_P],
+    "repro_torch_flash_attention_train_fwd": [_P] * 5 + [_I] * 6 + [_P],
+    "repro_torch_flash_attention_bwd": [_P] * 10 + [_I] * 6 + [_P],
     "repro_torch_flash_decode": [_P] * 6 + [_I] * 6 + [_P],
     "repro_torch_flash_decode_cluster": [_P] * 6 + [_I] * 7 + [_P],
     "repro_torch_csr_dot": [_P, _P, _P, _P, _I, _I, _P],

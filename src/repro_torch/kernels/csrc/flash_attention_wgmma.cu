@@ -52,172 +52,34 @@
 //   rows past S are not written. TMA zero-fills boxes past S and T, and
 //   the mask and the row guard keep ragged edges exact.
 // - Causal tiles run heaviest first (the grid's x axis reversed).
+// - The training forward (fa_train_fwd_kernel, D 64/128, causal) is the
+//   same body with one more epilogue store: each row's log-sum-exp
+//   (m + log2 l) ln 2, into lse (B, H, S) f32, for the backward
+//   (flash_attention_bwd.cu). It replaces no TPU kernel: the JAX package's
+//   training attention is jnp outside any Pallas kernel; it is here so the
+//   training step never writes its S x T scores to device memory.
+//   fa_wgmma_kernel, the serving prefill's, compiles without that store.
 #include <cuda.h>  // CUtensorMap and its enums only: libcuda is not linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "hopper_async.cuh"
+#include "wgmma.cuh"
 
 namespace repro_torch {
 namespace fa_wgmma {
 
-constexpr int kM = 64;                 // query rows a block (the wgmma M)
-constexpr int kN = 64;                 // keys a tile
-constexpr int kThreads = 128;          // one warpgroup
-constexpr int kSlots = 2;              // K/V ring
-constexpr uint32_t kBoxBytes = 64 * 128;  // one 64-row x 64-dim bf16 box
-constexpr float kNegInf = -1e30f;      // the TPU kernel's mask value
-constexpr unsigned kFullMask = 0xffffffffu;
-
-// d (m64n64, f32) = A·B (scale_d = 0) or d + A·B, A (64 x 16) and B
-// (16 x 64) bf16 K-major in shared memory, given by descriptors
-__device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t da, uint64_t db,
-                                                int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// d (m64n64, f32) += A·B, A (64 x 16) bf16 from registers (four bf16x2
-// a thread), B (16 x 64) bf16 MN-major in shared memory (transpose bit set)
-__device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32], const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d (m64n128, f32) += A·B, A (64 x 16) bf16 from registers (four bf16x2
-// a thread), B (16 x 128) bf16 MN-major in shared memory (transpose bit set)
-__device__ __forceinline__ void wgmma_rs_m64n128(float (&d)[64], const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// keep the compiler from moving accesses to wgmma registers across the
-// async window
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// shared-memory matrix descriptor, 128-byte swizzle; offsets in bytes
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
-         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// d (m64n192, f32) += A·B, A (64 x 16) bf16 from registers (four bf16x2
-// a thread), B (16 x 192) bf16 MN-major in shared memory (transpose bit set)
-__device__ __forceinline__ void wgmma_rs_m64n192(float (&d)[96], const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
-      " %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
-      " %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
-      "{%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
-        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
-        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// 64-dim boxes a row of head dim D, and the P V width they cover
-__host__ __device__ constexpr int boxes(int d) { return (d + 63) / 64; }
-__host__ __device__ constexpr int pv_width(int d) { return 64 * boxes(d); }
-
-template <int N>
-__device__ __forceinline__ void wgmma_pv(float (&o)[N / 2], const uint32_t* a, uint64_t db);
-template <>
-__device__ __forceinline__ void wgmma_pv<64>(float (&o)[32], const uint32_t* a, uint64_t db) {
-  wgmma_rs_m64n64(o, a, db);
-}
-template <>
-__device__ __forceinline__ void wgmma_pv<128>(float (&o)[64], const uint32_t* a, uint64_t db) {
-  wgmma_rs_m64n128(o, a, db);
-}
-template <>
-__device__ __forceinline__ void wgmma_pv<192>(float (&o)[96], const uint32_t* a, uint64_t db) {
-  wgmma_rs_m64n192(o, a, db);
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-fa_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-                const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
-                int s_len, int t_len, int n_heads, int group_log2, int causal,
-                float scale_log2) {
+// The kernel's body; kLse also writes each row's log-sum-exp of its scaled
+// scores (natural log, lse (B, H, S) f32), which the training backward
+// (flash_attention_bwd.cu) recomputes P from. Without it the code is the
+// serving prefill's kernel as it was.
+template <int D, bool kLse>
+__device__ __forceinline__ void fa_forward(const CUtensorMap& tq, const CUtensorMap& tk,
+                                           const CUtensorMap& tv, __nv_bfloat16* __restrict__ o,
+                                           float* __restrict__ lse, int s_len, int t_len,
+                                           int n_heads, int group_log2, int causal,
+                                           float scale_log2) {
   constexpr int kBoxes = boxes(D);             // 64-dim boxes a row
   constexpr int kPV = pv_width(D);             // P V's N: whole boxes
   constexpr uint32_t kTile = kBoxes * kBoxBytes;  // one 64-row tile of Q, K or V
@@ -371,47 +233,93 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
       for (int c = 0; c < D / 8; ++c)
         *reinterpret_cast<uint32_t*>(out + 8 * c) =
             pack_bf16(acc[4 * c + 2 * h] / l, acc[4 * c + 2 * h + 1] / l);
+      if constexpr (kLse) {  // m_run and l are in the log2 domain of the scaled scores
+        if ((lane & 3) == 0)
+          lse[((long long)b * n_heads + head) * s_len + pos[h]] =
+              (m_run[h] + log2f(l)) * 0.6931471805599453f;
+      }
     }
   }
 }
 
-// 4-D bf16 map of a contiguous (B, rows, heads, D) tensor, box (64 dims,
-// box_heads, box_rows, 1) in the 128-byte swizzle; out of range reads 0
-static bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int b, int rows, int heads,
-                   int d, int box_heads, int box_rows) {
-  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads, (cuuint64_t)rows, (cuuint64_t)b};
-  const cuuint64_t strides[3] = {(cuuint64_t)d * 2, (cuuint64_t)heads * d * 2,
-                                 (cuuint64_t)rows * heads * d * 2};
-  const cuuint32_t box[4] = {64, (cuuint32_t)box_heads, (cuuint32_t)box_rows, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
-            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+fa_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+                int s_len, int t_len, int n_heads, int group_log2, int causal,
+                float scale_log2) {
+  fa_forward<D, false>(tq, tk, tv, o, nullptr, s_len, t_len, n_heads, group_log2, causal,
+                       scale_log2);
+}
+
+// the training forward: the same, causal, with the log-sum-exp
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+fa_train_fwd_kernel(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+                    float* __restrict__ lse, int s_len, int t_len, int n_heads, int group_log2,
+                    float scale_log2) {
+  fa_forward<D, true>(tq, tk, tv, o, lse, s_len, t_len, n_heads, group_log2, 1, scale_log2);
+}
+
+// q's, k's and v's tensor maps and the dynamic shared memory the kernel
+// asks for, or the error that keeps them from being made
+template <int D>
+static cudaError_t prepare(const void* q, const void* k, const void* v, int b, int s_len,
+                           int t_len, int n_heads, int n_kv_heads, int group_log2,
+                           CUtensorMap* tq, CUtensorMap* tk, CUtensorMap* tv, int* smem) {
+  EncodeTiled fn;
+  cudaError_t err = get_encode_tiled(&fn);
+  if (err != cudaSuccess) return err;
+  const int group = 1 << group_log2;
+  if (!encode(fn, tq, q, b, s_len, n_heads, D, group, kM / group) ||
+      !encode(fn, tk, k, b, t_len, n_kv_heads, D, 1, kN) ||
+      !encode(fn, tv, v, b, t_len, n_kv_heads, D, 1, kN))
+    return cudaErrorInvalidValue;
+  *smem = (int)(boxes(D) * kBoxBytes * (1 + 2 * kSlots) + 8 * (1 + kSlots) + 1024);
+  return cudaSuccess;
+}
+
+static dim3 grid_of(int b, int s_len, int n_kv_heads, int group_log2) {
+  const int rows_pos = kM >> group_log2;
+  return dim3((unsigned)((s_len + rows_pos - 1) / rows_pos), (unsigned)n_kv_heads, (unsigned)b);
 }
 
 template <int D>
 static int launch(const void* q, const void* k, const void* v, void* o, int b, int s_len,
                   int t_len, int n_heads, int n_kv_heads, int group_log2, int causal,
                   cudaStream_t stream) {
-  EncodeTiled fn;
-  cudaError_t err = get_encode_tiled(&fn);
-  if (err != cudaSuccess) return (int)err;
-  const int group = 1 << group_log2;
   CUtensorMap tq, tk, tv;
-  if (!encode(fn, &tq, q, b, s_len, n_heads, D, group, kM / group) ||
-      !encode(fn, &tk, k, b, t_len, n_kv_heads, D, 1, kN) ||
-      !encode(fn, &tv, v, b, t_len, n_kv_heads, D, 1, kN))
-    return (int)cudaErrorInvalidValue;
-  const int smem = (int)(boxes(D) * kBoxBytes * (1 + 2 * kSlots) + 8 * (1 + kSlots) + 1024);
+  int smem = 0;
+  cudaError_t err = prepare<D>(q, k, v, b, s_len, t_len, n_heads, n_kv_heads, group_log2, &tq,
+                               &tk, &tv, &smem);
+  if (err != cudaSuccess) return (int)err;
   err = cudaFuncSetAttribute(fa_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
   if (err != cudaSuccess) return (int)err;
-  const int rows_pos = kM / group;
-  const dim3 grid((unsigned)((s_len + rows_pos - 1) / rows_pos), (unsigned)n_kv_heads,
-                  (unsigned)b);
   const float scale_log2 = 1.4426950408889634f / sqrtf((float)D);
-  fa_wgmma_kernel<D><<<grid, kThreads, smem, stream>>>(
+  fa_wgmma_kernel<D><<<grid_of(b, s_len, n_kv_heads, group_log2), kThreads, smem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), s_len, t_len, n_heads, group_log2, causal,
+      scale_log2);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+static int launch_train(const void* q, const void* k, const void* v, void* o, float* lse, int b,
+                        int s_len, int t_len, int n_heads, int n_kv_heads, int group_log2,
+                        cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  int smem = 0;
+  cudaError_t err = prepare<D>(q, k, v, b, s_len, t_len, n_heads, n_kv_heads, group_log2, &tq,
+                               &tk, &tv, &smem);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(fa_train_fwd_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const float scale_log2 = 1.4426950408889634f / sqrtf((float)D);
+  fa_train_fwd_kernel<D><<<grid_of(b, s_len, n_kv_heads, group_log2), kThreads, smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, s_len, t_len, n_heads, group_log2,
       scale_log2);
   return (int)cudaGetLastError();
 }
@@ -427,11 +335,8 @@ extern "C" int repro_torch_flash_attention_wgmma(const void* q, const void* k, c
                                                  int n_heads, int n_kv_heads, int d_head,
                                                  int causal, void* stream) {
   using namespace repro_torch::fa_wgmma;
-  if (n_kv_heads < 1 || n_heads % n_kv_heads) return (int)cudaErrorInvalidValue;
-  const int group = n_heads / n_kv_heads;
-  int group_log2 = 0;
-  while ((1 << group_log2) < group) ++group_log2;
-  if ((1 << group_log2) != group || group > kM) return (int)cudaErrorInvalidValue;
+  const int group_log2 = group_log2_of(n_heads, n_kv_heads);
+  if (group_log2 < 0) return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   if (d_head == 64)
     return launch<64>(q, k, v, o, b, s_len, t_len, n_heads, n_kv_heads, group_log2, causal, st);
@@ -439,5 +344,25 @@ extern "C" int repro_torch_flash_attention_wgmma(const void* q, const void* k, c
     return launch<128>(q, k, v, o, b, s_len, t_len, n_heads, n_kv_heads, group_log2, causal, st);
   if (d_head == 160)
     return launch<160>(q, k, v, o, b, s_len, t_len, n_heads, n_kv_heads, group_log2, causal, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+
+// The training forward: causal, q (B,S,H,D), k/v (B,T,K,D), o (B,S,H,D) as
+// above, and lse (B,H,S) f32, each row's log-sum-exp of its scaled scores;
+// D 64 or 128 (the backward's head dims).
+extern "C" int repro_torch_flash_attention_train_fwd(const void* q, const void* k,
+                                                     const void* v, void* o, void* lse, int b,
+                                                     int s_len, int t_len, int n_heads,
+                                                     int n_kv_heads, int d_head, void* stream) {
+  using namespace repro_torch::fa_wgmma;
+  const int group_log2 = group_log2_of(n_heads, n_kv_heads);
+  if (group_log2 < 0) return (int)cudaErrorInvalidValue;
+  auto st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
+  if (d_head == 64)
+    return launch_train<64>(q, k, v, o, l, b, s_len, t_len, n_heads, n_kv_heads, group_log2, st);
+  if (d_head == 128)
+    return launch_train<128>(q, k, v, o, l, b, s_len, t_len, n_heads, n_kv_heads, group_log2, st);
   return (int)cudaErrorInvalidValue;
 }

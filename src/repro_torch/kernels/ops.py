@@ -19,6 +19,12 @@ those local launches.  A decode cache whose positions are split over
 ``model`` (``cache_pspecs``) stays split: K6 runs on each rank's slice
 of positions and the partial outputs are combined by their log-sum-exps.
 
+The training path's causal attention on the card is ``CausalAttention``:
+``flash_attention_train`` (K4's tensor-core kernel with a log-sum-exp
+epilogue) and ``flash_attention_bwd`` (``csrc/flash_attention_bwd.cu``),
+routed by ``train_attention_route``; off the card it keeps the masked
+``sdpa``, so neither has a meta path.
+
 On the meta device (the dry run) K4, K5 and K6 run as the custom ops
 ``torch.ops.repro_torch.*``, whose fake implementations give outputs of
 the right shape and dtype and compute nothing, and whose FLOPs are in
@@ -40,6 +46,7 @@ LAUNCHES: Dict[str, int] = {
     "flash_attention": 0, "flash_decode": 0, "csr_dot": 0,
     "batch_gather": 0, "batch_gather_dma": 0,
     "rglru_scan": 0, "rglru_scan_bwd": 0,
+    "flash_attention_train": 0, "flash_attention_bwd": 0,
 }
 ENTRY_LAUNCHES: Dict[str, int] = {}
 
@@ -49,6 +56,7 @@ _CLUSTER_HEAD_DIMS = (64, 128, 160, 256)  # csrc/flash_decode_cluster.cu's insta
 _WIDE_ROUTE = "bf16 decode at head dim 256 runs on flash_decode's cluster kernel"
 _WGMMA_HEAD_DIMS = (64, 128, 160)  # csrc/flash_attention_wgmma.cu
 _WGMMA_ROWS = 64              # its query tile: the group must divide it
+_TRAIN_HEAD_DIMS = (64, 128)  # csrc/flash_attention_bwd.cu (and the training forward)
 _MAX_GROUP = 16      # kMaxGroup in csrc/flash_decode.cu and flash_decode_cluster.cu
 _DECODE_TILE = 64    # kTile in csrc/flash_decode_cluster.cu: a slice is whole tiles
 _MAX_SPLITS = 8      # its largest cluster (the portable size)
@@ -277,6 +285,119 @@ def flash_attention(q, k, v, causal: bool = True):
         else:
             _launch("flash_attention", "repro_torch_flash_attention", *args, code, stream)
     return out
+
+
+def _train_attention_kernel(device_type: str, dtype: torch.dtype, d: int, group: int,
+                            s: int, t: int) -> str:
+    """Which path serves the training path's causal attention
+    (``layers.attention.causal_attention``): ``"fused"``
+    (``CausalAttention``: the training forward and the backward kernels)
+    for bf16 on the card with head dim 64 or 128, a group ``H / K`` that
+    divides 64 and as many keys as queries; ``"plain"`` (the masked
+    ``sdpa`` under autograd) for everything else, the CPU and the meta
+    device included."""
+    if device_type == "cuda" and dtype == torch.bfloat16 and d in _TRAIN_HEAD_DIMS \
+            and group >= 1 and _WGMMA_ROWS % group == 0 and s == t:
+        return "fused"
+    return "plain"
+
+
+def train_attention_route(q, k, v) -> str:
+    """``_train_attention_kernel`` for plain tensors q (B,S,H,D), k, v
+    (B,T,K,D): what the call shows before any launch."""
+    if len({q.device, k.device, v.device}) != 1 or len({q.dtype, k.dtype, v.dtype}) != 1 \
+            or k.shape[2] < 1 or q.shape[2] % k.shape[2]:
+        return "plain"
+    return _train_attention_kernel(q.device.type, q.dtype, q.shape[3], q.shape[2] // k.shape[2],
+                                   q.shape[1], k.shape[1])
+
+
+def _check_train(name: str, q, k, v) -> None:
+    """What the training kernels take, checked before a launch."""
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape or k.shape[0] != q.shape[0] \
+            or k.shape[3] != q.shape[3]:
+        raise ValueError(f"{name}: shapes {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    b, s, h, d = q.shape
+    kh = k.shape[2]
+    _check_cuda(name, (q, k, v), h, kh, d)
+    if q.dtype != torch.bfloat16 or d not in _TRAIN_HEAD_DIMS or _WGMMA_ROWS % (h // kh):
+        raise ValueError(f"{name}: takes bf16 with head dim {_TRAIN_HEAD_DIMS} and a group "
+                         f"dividing {_WGMMA_ROWS}, got {q.dtype}, D {d}, group {h // kh}")
+    if k.shape[1] == 0:
+        raise ValueError(f"{name}: no keys")
+
+
+def flash_attention_train(q, k, v):
+    """The training path's causal attention forward: ``(o, lse)``, o
+    (B,S,H,D) as ``flash_attention(q, k, v)`` gives it and lse (B,H,S) f32
+    each row's log-sum-exp of its scaled scores, which the backward
+    recomputes the weights from.  On the CPU ``ref.flash_attention_lse``;
+    on the card the tensor-core kernel with its log-sum-exp epilogue
+    (``fa_train_fwd_kernel``), or it raises."""
+    if _on_cpu("flash_attention_train", q, k, v):
+        return ref.flash_attention_lse(q, k, v)
+    _check_train("flash_attention_train", q, k, v)
+    b, s, h, d = q.shape
+    t, kh = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    lse = torch.empty(b, h, s, dtype=torch.float32, device=q.device)
+    if out.numel() == 0:
+        return out, lse
+    with torch.cuda.device(q.device):
+        _launch("flash_attention_train", "repro_torch_flash_attention_train_fwd", q.data_ptr(),
+                k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), b, s, t, h, kh, d,
+                torch.cuda.current_stream().cuda_stream)
+    return out, lse
+
+
+def flash_attention_bwd(q, k, v, o, lse, do):
+    """The causal attention's gradient ``(dq, dk, dv)`` in the inputs'
+    dtype, from the forward's q, k, v, o and lse and the output gradient
+    ``do``.  On the CPU ``ref.flash_attention_bwd``; on the card one launch
+    of three kernels (``csrc/flash_attention_bwd.cu``: the rows' Δ, dQ a
+    query tile, dK and dV a key tile), counted once, or it raises."""
+    if _on_cpu("flash_attention_bwd", q, k, v, o, lse, do):
+        return ref.flash_attention_bwd(q, k, v, o, lse, do)
+    _check_train("flash_attention_bwd", q, k, v)
+    b, s, h, d = q.shape
+    t, kh = k.shape[1], k.shape[2]
+    _check_cuda("flash_attention_bwd", (o, do), h, kh, d)
+    if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype or do.dtype != q.dtype:
+        raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)} {o.dtype} and do "
+                         f"{tuple(do.shape)} {do.dtype} against q {tuple(q.shape)} {q.dtype}")
+    if lse.shape != (b, h, s) or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError(f"flash_attention_bwd: lse must be contiguous f32 {(b, h, s)}, got "
+                         f"{tuple(lse.shape)} {lse.dtype}")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if dq.numel() == 0:
+        return dq, dk.zero_(), dv.zero_()
+    delta = torch.empty(b, h, s, dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        _launch("flash_attention_bwd", "repro_torch_flash_attention_bwd", q.data_ptr(),
+                k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, t, h, kh, d,
+                torch.cuda.current_stream().cuda_stream)
+    return dq, dk, dv
+
+
+class CausalAttention(torch.autograd.Function):
+    """Causal attention under autograd on the training kernels: the
+    forward is ``flash_attention_train`` and saves q, k, v, o and lse; the
+    backward is ``flash_attention_bwd``.  Nothing of S x T is kept or
+    written, so under ``remat="dots"`` there is nothing left in it to
+    recompute.  Inputs are made contiguous first (a no-op on the training
+    path); gradients come back in the inputs' dtype."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        o, lse = flash_attention_train(q, k, v)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        return flash_attention_bwd(*ctx.saved_tensors, do.contiguous())
 
 
 def _decode_kernel(dtype: torch.dtype, d: int) -> str:

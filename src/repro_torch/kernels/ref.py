@@ -18,6 +18,11 @@ and the smoke run hold them to 2e-5 in f32 and 2e-2 in bf16.  ``sdpa``
 is the port's layer function (:mod:`repro_torch.layers.sdpa`), which the
 training path differentiates too.
 
+``flash_attention_lse`` / ``flash_attention_bwd`` (the training path's
+causal attention on the card, ``ops.CausalAttention``) repeat the
+training kernels' arithmetic: the forward's log-sum-exp, and the
+backward's weights recomputed from it a key block at a time.
+
 ``rglru_scan`` / ``rglru_scan_bwd`` (the RG-LRU layer's recurrence and
 its gradient, the training path) walk time one step at a time, each step
 one multiply and then one add in f32, as csrc/rglru_scan.cu does: the
@@ -57,6 +62,51 @@ def flash_attention(q, k, v, causal: bool = True):
     """q: (B,S,H,D); k, v: (B,T,K,D).  Returns (B,S,H,D)."""
     mask = causal_mask(q.shape[1], k.shape[1], q.device) if causal else None
     return sdpa(q, k, v, mask=mask)
+
+
+def flash_attention_lse(q, k, v):
+    """The training forward's plain version: causal ``(o, lse)``, o
+    (B,S,H,D) and lse (B,H,S) f32, each row's log-sum-exp of its scaled
+    f32 scores (``_grouped_sdpa``'s rounding)."""
+    mask = causal_mask(q.shape[1], k.shape[1], q.device)[:, :, None]  # (1,1,1,S,T)
+    o, lse = _grouped_sdpa(q, k, v, mask, with_lse=True)
+    return o, lse.transpose(1, 2).contiguous()
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, block: int = 64):
+    """The causal attention's gradient as ``csrc/flash_attention_bwd.cu``
+    computes it, in f32, one key block of ``block`` keys at a time: Δ =
+    rowsum(dO∘O) per query row; per block the weights recomputed from the
+    forward's log-sum-exp, P = exp(S·scale − lse), 0 past each row's
+    position; dV += Pᵀ·dO and dP = dO·Vᵀ; dS = P∘(dP − Δ)·scale; dK +=
+    dSᵀ·Q and dQ += dS·K.  P and dS are rounded to q's dtype before their
+    products, as the kernels round them (and as the autograd of ``sdpa``
+    rounds the weights and the scores' gradient).  q, o, do (B,S,H,D), k,
+    v (B,T,K,D), lse (B,H,S); returns ``(dq, dk, dv)`` in the inputs'
+    dtypes."""
+    b, s, h, d = q.shape
+    t, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    scale = 1.0 / math.sqrt(d)
+    qf = q.float().reshape(b, s, kh, g, d)
+    dof = do.float().reshape(b, s, kh, g, d)
+    kf, vf = k.float(), v.float()
+    delta = (dof * o.float().reshape(b, s, kh, g, d)).sum(-1).permute(0, 2, 3, 1)  # (b,k,g,s)
+    lse = lse.float().reshape(b, kh, g, s)
+    qpos = torch.arange(s, device=q.device)[:, None]
+    dq = torch.zeros_like(qf)
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    for t0 in range(0, t, block):
+        kb, vb = kf[:, t0:t0 + block], vf[:, t0:t0 + block]
+        keep = (t0 + torch.arange(kb.shape[1], device=q.device))[None, :] <= qpos  # (s, n)
+        p = torch.exp(torch.einsum("bskgd,btkd->bkgst", qf, kb) * scale - lse[..., None])
+        p = torch.where(keep, p, 0.0)
+        dv[:, t0:t0 + block] += torch.einsum("bkgst,bskgd->btkd", p.to(q.dtype).float(), dof)
+        dp = torch.einsum("bskgd,btkd->bkgst", dof, vb)
+        ds = (p * (dp - delta[..., None]) * scale).to(q.dtype).float()
+        dk[:, t0:t0 + block] += torch.einsum("bkgst,bskgd->btkd", ds, qf)
+        dq += torch.einsum("bkgst,btkd->bskgd", ds, kb)
+    return dq.reshape(b, s, h, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def edge_probe(q_shape, kv_shape, dtype, generator):

@@ -11,8 +11,10 @@ the CPU.  They have no backward.  Training differentiates
 plain torch products as the JAX package's training path computes them in
 jnp outside any Pallas kernel, on the masked ``sdpa`` of
 :mod:`repro_torch.layers.sdpa`; with ``ckpt`` their work between the
-products is a remat segment (``common.segment``).  On DTensors they run
-on each rank's shards of rows and heads (``_per_head``).
+products is a remat segment (``common.segment``).  On the card,
+``causal_attention`` in bf16 at head dim 64 or 128 runs the training
+kernels instead (``ops.CausalAttention``).  On DTensors they run on each
+rank's shards of rows and heads (``_per_head``).
 """
 from __future__ import annotations
 
@@ -113,8 +115,16 @@ def causal_mask(s: int, t=None, offset: int = 0, device=None) -> torch.Tensor:
 
 @_per_head
 def causal_attention(q, k, v, ckpt: bool = False):
-    """Causal attention through the masked ``sdpa`` (differentiable; the
-    training path of the ``attn`` kind)."""
+    """Causal attention, differentiable: the training path of the ``attn``
+    kind.  Where ``ops.train_attention_route`` says ``"fused"`` (bf16 on
+    the card, head dim 64 or 128, a group dividing 64) it is
+    ``ops.CausalAttention``: the fused forward with its log-sum-exp and
+    the fused backward, which save q, k, v, o and lse, so ``ckpt`` has
+    nothing left to recompute in it (JAX's ``checkpoint_dots`` is matched
+    in what it computes, not in what it keeps).  Everything else, the CPU
+    and the meta device included, runs the masked ``sdpa``."""
+    if ops.train_attention_route(q, k, v) == "fused":
+        return ops.CausalAttention.apply(q, k, v)
     return sdpa(q, k, v, mask=causal_mask(q.shape[1], k.shape[1], device=q.device), ckpt=ckpt)
 
 

@@ -27,6 +27,11 @@ cross cache at ``cur`` = T - 1 (cross-attention's), T - 2, 0 and past T,
 each on N(0, 1) inputs and on ``ref.edge_probe``'s, on which the same
 tolerance fails a planted fault at the ragged last key tile.
 Gradient compression (no kernel) gives the CPU's bits on the card.
+The training path's causal attention (``ops.CausalAttention``: the
+training forward with its log-sum-exp and the fused backward, bf16 at
+head dims 64 and 128) is held to the masked ``sdpa``'s autograd in f32
+from the same bf16 inputs, beside the plain bf16 route it replaces; a
+2-layer granite-3-8b step's gradients to the plain route's.
 """
 import pytest
 import torch
@@ -684,3 +689,125 @@ def test_compression_on_card_equals_cpu(cuda, seed, bits):
     (want_c, want_sc), want_nr = comp.compress([x], [r])
     assert torch.equal(c[0].cpu(), want_c[0]) and torch.equal(sc[0].cpu(), want_sc[0])
     assert torch.equal(nr[0].cpu(), want_nr[0])
+
+
+# ------------------------------------------- the training path's attention
+
+# (B, S, H, K, D): granite-3-8b's training shape; ragged S = 65 and 1,000 at
+# groups 1, 4 and 8; D 64; qwen2-moe-a2.7b's shape (16 heads, group 1) and
+# whisper-tiny's decoder self-attention (batch 8 of 448 tokens, 6 heads, D
+# 64), and batches of 2 and 3 at ragged S
+TRAIN_ATTN = [(1, 4096, 32, 8, 128), (1, 65, 32, 8, 128), (1, 1000, 32, 8, 128),
+              (1, 65, 8, 8, 128), (1, 1000, 8, 8, 128), (1, 65, 64, 8, 128),
+              (1, 1000, 64, 8, 128), (1, 65, 8, 2, 64), (1, 1000, 32, 8, 64),
+              (1, 4096, 16, 16, 128), (8, 448, 6, 6, 64), (2, 1000, 32, 8, 128),
+              (3, 65, 8, 2, 64)]
+
+
+def _rel(got, want):
+    got, want = got.float(), want.float()
+    return float((got - want).norm() / want.norm())
+
+
+def _sdpa_grads(q, k, v, do, dt):
+    from repro_torch.layers.attention import causal_mask
+    from repro_torch.layers.sdpa import sdpa
+
+    xs = [x.to(dt, copy=True).requires_grad_() for x in (q, k, v)]
+    o = sdpa(*xs, mask=causal_mask(q.shape[1], k.shape[1], device=q.device))
+    return (o.detach(), *torch.autograd.grad(o, xs, do.to(dt)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,kh,d", TRAIN_ATTN)
+def test_train_attention_kernels_on_card(cuda, b, s, h, kh, d):
+    """Output, lse and dq/dk/dv against the masked ``sdpa``'s autograd in
+    f32 from the same bf16 inputs.  Tolerances: the output within bf16
+    attention's 2e-2 (it is rounded to bf16, as K4's); lse within 1e-3
+    (f32 from the same bf16 products, summed in another order); each
+    gradient's relative error (Frobenius) at most 1.25 x the plain bf16
+    route's (the ``sdpa``'s autograd in bf16, which rounds the scores, P
+    and dS and the products' outputs to bf16), or 2e-3 where that is
+    smaller: the kernels round P and dS as that route does, the scores not
+    at all.  Every tolerance holds in each batch row alone, so a fault in
+    one row's offsets shows whatever the batch.  One forward and one
+    backward launch a call."""
+    assert ops._train_attention_kernel("cuda", torch.bfloat16, d, h // kh, s, s) == "fused"
+    g = torch.Generator().manual_seed(b + s + h + d)
+    q, do = (torch.randn(b, s, h, d, generator=g).to(cuda, torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(b, s, kh, d, generator=g).to(cuda, torch.bfloat16) for _ in range(2))
+    want = _sdpa_grads(q, k, v, do, torch.float32)
+    plain = _sdpa_grads(q, k, v, do, torch.bfloat16)
+    ops.reset_launch_counts()
+    xs = [x.clone().requires_grad_() for x in (q, k, v)]
+    o = ops.CausalAttention.apply(*xs)
+    got = (o.detach(), *torch.autograd.grad(o, xs, do))
+    assert ops.LAUNCHES["flash_attention_train"] == 1 and ops.LAUNCHES["flash_attention_bwd"] == 1
+    assert ops.ENTRY_LAUNCHES == {"repro_torch_flash_attention_train_fwd": 1,
+                                  "repro_torch_flash_attention_bwd": 1}
+    torch.testing.assert_close(got[0].float(), want[0], rtol=2e-2, atol=2e-2)
+    _, lse = ops.flash_attention_train(q, k, v)
+    kx = k.float().repeat_interleave(h // kh, dim=2)
+    sc = torch.einsum("bshd,bthd->bhst", q.float(), kx) / d ** 0.5
+    keep = torch.arange(s, device=cuda)[None, :] <= torch.arange(s, device=cuda)[:, None]
+    want_lse = torch.logsumexp(torch.where(keep, sc, -torch.inf), dim=-1)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-3)
+    for name, a, p, w in zip(("dq", "dk", "dv"), got[1:], plain[1:], want[1:]):
+        assert a.dtype == torch.bfloat16 and torch.isfinite(a).all(), name
+        for i in range(b):
+            err, base = _rel(a[i], w[i]), _rel(p[i], w[i])
+            assert err <= max(1.25 * base, 2e-3), (name, i, err, base)
+
+
+@pytest.mark.gpu
+def test_train_attention_backward_is_deterministic_on_card(cuda):
+    """dQ is written once per row by the block that owns it (no atomics),
+    dK and dV once per key tile: two backwards are bit-equal."""
+    g = torch.Generator().manual_seed(5)
+    q, do = (torch.randn(1, 4096, 32, 128, generator=g).to(cuda, torch.bfloat16)
+             for _ in range(2))
+    k, v = (torch.randn(1, 4096, 8, 128, generator=g).to(cuda, torch.bfloat16) for _ in range(2))
+    o, lse = ops.flash_attention_train(q, k, v)
+    first = ops.flash_attention_bwd(q, k, v, o, lse, do)
+    again = ops.flash_attention_bwd(q, k, v, o, lse, do)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.gpu
+def test_granite_two_layer_step_fused_matches_plain_on_card(cuda, monkeypatch):
+    """granite-3-8b at full width, 2 layers, one sequence of 4,096 tokens,
+    ``remat="dots"``: the loss and every leaf's gradient norm on the fused
+    route against the plain route (the masked ``sdpa``), within the
+    benchmark's limits for the cell (``bench/limits/granite-3-8b.train-4k
+    .json``: loss 2e-4 relative, a leaf's gradient norm 1e-3 of its own or
+    the median leaf's); two attention launches each way a step."""
+    import statistics
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as tm
+    from repro_torch.utils.tree import tree_leaves, tree_unflatten
+
+    cfg = get_config("granite-3-8b")
+    cfg = cfg.replace(stages=((cfg.stages[0][0], 2),))
+    params = tm.init_params(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (1, 4097), generator=g, dtype=torch.int32).to(cuda)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    def step():
+        leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+        loss, _ = tm.loss_fn(cfg, tree_unflatten(params, leaves), batch)
+        grads = torch.autograd.grad(loss, leaves)
+        return float(loss.detach()), [float(x.float().norm()) for x in grads]
+
+    ops.reset_launch_counts()
+    loss, norms = step()
+    assert ops.LAUNCHES["flash_attention_train"] == 2 and ops.LAUNCHES["flash_attention_bwd"] == 2
+    monkeypatch.setattr(ops, "train_attention_route", lambda *a: "plain")
+    ops.reset_launch_counts()
+    want_loss, want = step()
+    assert ops.LAUNCHES["flash_attention_train"] == ops.LAUNCHES["flash_attention_bwd"] == 0
+    assert abs(loss - want_loss) / abs(want_loss) < 2e-4
+    med = statistics.median(want)
+    gaps = [abs(a - b) / max(b, med) for a, b in zip(norms, want)]
+    assert max(gaps) < 1e-3, gaps

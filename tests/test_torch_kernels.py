@@ -166,9 +166,12 @@ def test_cpu_path_launches_no_kernel_and_other_devices_raise():
     ops.batch_gather_dma(val, idx[0])
     a = torch.rand(2, 5, 3, requires_grad=True)
     ops.RGLRUScan.apply(a, a).sum().backward()
+    b = torch.rand(1, 4, 2, 16, requires_grad=True)
+    ops.CausalAttention.apply(b, k, k).sum().backward()
     assert ops.LAUNCHES == {"flash_attention": 0, "flash_decode": 0, "csr_dot": 0,
                             "batch_gather": 0, "batch_gather_dma": 0,
-                            "rglru_scan": 0, "rglru_scan_bwd": 0}
+                            "rglru_scan": 0, "rglru_scan_bwd": 0,
+                            "flash_attention_train": 0, "flash_attention_bwd": 0}
     with pytest.raises(ValueError, match="no kernel for device meta"):
         ops.batch_gather(val.to("meta"), idx[0].to("meta"))
     # K4, K5 and K6 give meta outputs of the right shape on meta inputs
@@ -183,6 +186,8 @@ def test_cpu_path_launches_no_kernel_and_other_devices_raise():
     assert sum(ops.LAUNCHES.values()) == 0
     with pytest.raises(ValueError, match="no kernel for device meta"):
         ops.csr_dot(idx.to("meta"), val.to("meta"), w.to("meta"))
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        ops.flash_attention_train(q.to("meta"), k.to("meta"), k.to("meta"))
     with pytest.raises(ValueError, match="several devices"):
         ops.flash_attention(q, k.to("meta"), k)
 
@@ -325,3 +330,113 @@ def test_reset_clears_launches_by_entry_point():
     ops.ENTRY_LAUNCHES["repro_torch_flash_decode_cluster"] = 3
     ops.reset_launch_counts()
     assert ops.ENTRY_LAUNCHES == {} and set(ops.LAUNCHES.values()) == {0}
+
+
+# ------------------------------------------- the training path's attention
+# ``ops.CausalAttention`` on the card; here its plain versions
+# (``ref.flash_attention_lse``, ``ref.flash_attention_bwd``) and the route.
+
+
+def _causal_grads(q, k, v, do):
+    """The masked ``sdpa``'s output and its autograd gradients."""
+    from repro_torch.layers.attention import causal_mask
+    from repro_torch.layers.sdpa import sdpa
+
+    xs = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    o = sdpa(*xs, mask=causal_mask(q.shape[1], k.shape[1]))
+    return (o.detach(), *torch.autograd.grad(o, xs, do))
+
+
+# (S, H, K, D, key block): one block, ragged last blocks, groups 1, 2, 4, 8
+TRAIN_ATTN_CASES = [(16, 4, 4, 16, 64), (65, 8, 2, 16, 64), (100, 8, 1, 32, 64),
+                    (130, 8, 8, 16, 64), (77, 16, 2, 8, 16)]
+
+
+@pytest.mark.parametrize("s,h,kh,d,block", TRAIN_ATTN_CASES)
+def test_flash_attention_bwd_plain_matches_sdpa_autograd(s, h, kh, d, block):
+    """The backward's arithmetic (Δ, the weights recomputed from lse a key
+    block at a time) against autograd of the masked ``sdpa``, in f32,
+    where the roundings to q's dtype are no-ops: within f32's 2e-5."""
+    from repro_torch.kernels import ref
+
+    g = torch.Generator().manual_seed(s * 7 + h)
+    q = torch.randn(2, s, h, d, generator=g)
+    k, v = (torch.randn(2, s, kh, d, generator=g) for _ in range(2))
+    do = torch.randn(2, s, h, d, generator=g)
+    o, dq, dk, dv = _causal_grads(q, k, v, do)
+    got_o, lse = ref.flash_attention_lse(q, k, v)
+    torch.testing.assert_close(got_o, o, rtol=2e-5, atol=2e-5)
+    for got, want in zip(ref.flash_attention_bwd(q, k, v, got_o, lse, do, block), (dq, dk, dv)):
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("s,h,kh,d", [(1, 2, 1, 16), (40, 4, 2, 16), (70, 8, 4, 32)])
+def test_flash_attention_lse_is_the_rows_log_sum_exp(s, h, kh, d):
+    """lse (B,H,S): each row's log-sum-exp of its scaled f32 scores over
+    the keys at or before it."""
+    from repro_torch.kernels import ref
+
+    g = torch.Generator().manual_seed(s + d)
+    q = torch.randn(1, s, h, d, generator=g)
+    k, v = (torch.randn(1, s, kh, d, generator=g) for _ in range(2))
+    _, lse = ref.flash_attention_lse(q, k, v)
+    assert lse.shape == (1, h, s) and lse.dtype == torch.float32
+    kx = k.repeat_interleave(h // kh, dim=2)
+    sc = torch.einsum("bshd,bthd->bhst", q, kx) / d ** 0.5
+    keep = torch.arange(s)[None, :] <= torch.arange(s)[:, None]
+    want = torch.logsumexp(torch.where(keep, sc, -torch.inf), dim=-1)
+    torch.testing.assert_close(lse, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_causal_attention_function_on_cpu_matches_sdpa(dtype):
+    """``ops.CausalAttention`` on CPU tensors (its plain versions) gives the
+    masked ``sdpa``'s output and gradients: in f32 within 2e-5; in bf16
+    within 2e-2 (P and dS rounded where the kernels round them, against
+    autograd's roundings)."""
+    g = torch.Generator().manual_seed(3)
+    q = torch.randn(1, 33, 8, 16, generator=g).to(dtype)
+    k, v = (torch.randn(1, 33, 2, 16, generator=g).to(dtype) for _ in range(2))
+    do = torch.randn(1, 33, 8, 16, generator=g).to(dtype)
+    want = _causal_grads(q, k, v, do)
+    xs = [x.clone().requires_grad_() for x in (q, k, v)]
+    o = ops.CausalAttention.apply(*xs)
+    got = (o.detach(), *torch.autograd.grad(o, xs, do))
+    tol = TOL[str(dtype).removeprefix("torch.")]
+    for a, b in zip(got, want):
+        assert a.dtype == dtype
+        torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("device,dtype,d,group,s,t,route", [
+    ("cuda", torch.bfloat16, 128, 4, 4096, 4096, "fused"),  # granite-3-8b's training
+    ("cuda", torch.bfloat16, 64, 1, 65, 65, "fused"),
+    ("cuda", torch.bfloat16, 128, 64, 100, 100, "fused"),  # one position a 64-row tile
+    ("cuda", torch.bfloat16, 160, 4, 4096, 4096, "plain"),  # stablelm-12b: no backward kernel
+    ("cuda", torch.bfloat16, 128, 6, 4096, 4096, "plain"),  # dbrx-132b's group
+    ("cuda", torch.bfloat16, 128, 3, 4096, 4096, "plain"),  # phi4-mini-3.8b's
+    ("cuda", torch.bfloat16, 128, 128, 100, 100, "plain"),
+    ("cuda", torch.bfloat16, 128, 4, 100, 120, "plain"),  # keys past the queries
+    ("cuda", torch.float32, 128, 4, 4096, 4096, "plain"),
+    ("cpu", torch.bfloat16, 128, 4, 4096, 4096, "plain"),
+    ("meta", torch.bfloat16, 128, 4, 4096, 4096, "plain"),
+])
+def test_train_attention_routing(device, dtype, d, group, s, t, route):
+    assert ops._train_attention_kernel(device, dtype, d, group, s, t) == route
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_causal_attention_keeps_the_plain_sdpa_on_cpu_and_meta(device):
+    """granite-3-8b's heads in bf16 off the card run the masked ``sdpa``
+    (the CPU tests against JAX and the dry run see no change): no
+    ``CausalAttention`` node, no launch, and on meta the right shape."""
+    from repro_torch.layers import attention
+
+    ops.reset_launch_counts()
+    q = torch.randn(1, 8, 32, 128, dtype=torch.bfloat16, device=device, requires_grad=True)
+    k = torch.randn(1, 8, 8, 128, dtype=torch.bfloat16, device=device)
+    assert ops.train_attention_route(q, k, k) == "plain"
+    o = attention.causal_attention(q, k, k, ckpt=True)
+    assert o.shape == q.shape and o.device.type == device
+    assert "CausalAttention" not in type(o.grad_fn).__name__
+    assert sum(ops.LAUNCHES.values()) == 0
