@@ -9,7 +9,7 @@ written so far; recomputed work is not counted.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterable, Sequence
+from typing import Dict, Iterable, Sequence, Tuple
 
 # One H100 SXM (NVIDIA's data sheet, dense, at the 700 W limit)
 PEAK_BF16_FLOPS = 989e12
@@ -17,18 +17,30 @@ PEAK_HBM_BYTES = 3.35e12
 BF16 = 2
 
 
-def matrix_params(cfg: Dict, lm_head: bool = True) -> int:
+def experts(cfg: Dict) -> Tuple[int, int]:
+    """``(held, routed)``: the experts a layer holds on this chip (the
+    file's ``num_experts``, listed in ``reduced`` where it is a chip's
+    share) and the router's width, the published count beside it
+    (``published.num_experts``) where the file gives one."""
+    held = cfg["num_experts"]
+    return held, cfg.get("published", {}).get("num_experts", held)
+
+
+def matrix_params(cfg: Dict, lm_head: bool = True) -> float:
     """Matrix parameters one token uses: attention's four projections, the
-    FFN (or the router, the top-k routed experts and the shared experts)
-    of every layer, and the output head (``lm_head``, or the embedding's
-    transpose where they are tied).  The embedding gather is not a
+    FFN of every layer, and the output head (``lm_head``, or the
+    embedding's transpose where they are tied).  A MoE layer's FFN is the
+    router at its routed width, k routed experts a token of which a chip
+    holding ``held`` of ``routed`` computes k × held / routed on average,
+    and the shared experts once.  The embedding gather is not a
     product."""
     d, h, kv, hd = (cfg["hidden_size"], cfg["num_attention_heads"],
                     cfg["num_key_value_heads"], cfg["head_dim"])
     per_layer = d * h * hd * 2 + d * kv * hd * 2
     if "num_experts" in cfg:
-        per_layer += d * cfg["num_experts"]
-        per_layer += cfg["num_experts_per_tok"] * 3 * d * cfg["moe_intermediate_size"]
+        held, routed = experts(cfg)
+        per_layer += d * routed
+        per_layer += cfg["num_experts_per_tok"] * held * 3 * d * cfg["moe_intermediate_size"] / routed
         per_layer += 3 * d * cfg.get("shared_expert_intermediate_size", 0)
     else:
         per_layer += 3 * d * cfg["intermediate_size"]

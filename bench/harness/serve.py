@@ -14,10 +14,11 @@ not yet served when it closes are served after it, for as long as the mix's
 ``drain_seconds``; their wait counts, and one never served counts as a
 miss.
 
-After the window the program is freed; the reference runs a sample of the
-finished requests, drawn from the seed and holding the longest, over each
-prompt with its served tokens, and the widest gap by which a served token's
-logit lies below the reference's best is compared with the cell's limit.
+After the window the program is freed; the configuration's reference runs
+a sample of the finished requests, drawn from the seed and holding the
+longest, over each prompt with its served tokens, and the widest gap by
+which a served token's logit lies below the reference's best is compared
+with the cell's limit.
 """
 from __future__ import annotations
 
@@ -77,13 +78,13 @@ def schedule(mix: Dict, seed: int, seconds: float, vocab: int) -> List[Dict]:
     return out
 
 
-def _port_params(cfg, conf: Dict, seed: int, device):
+def _port_params(cfg, conf: Dict, seed: int, device, ref):
     from repro_torch.models import model as M
     from repro_torch.utils.tree import tree_map
 
     shapes = M.init_params(cfg, None, torch.device("meta"))
     params = tree_map(lambda x: torch.empty(x.shape, dtype=x.dtype, device=device), shapes)
-    weights.fill_port(conf, seed, params)
+    weights.fill_port(ref, conf, seed, params)
     return params
 
 
@@ -142,10 +143,10 @@ def run(cell: spec.Cell, seed: int, seconds: float, trace: bool, device,
     t_setup = time.perf_counter()
     phases = common.Phases()
     mix, conf = cell.mix, cell.config
-    cfg = spec.port_config(conf)
+    cfg = spec.port_config(conf, ref=cell.reference)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    params = _port_params(cfg, conf, seed, device)
+    params = _port_params(cfg, conf, seed, device, cell.reference)
     phases.mark("weights")
     clock = WallClock()
     engine = ServeEngine(cfg, params, max_batch=mix["max_batch"],
@@ -252,14 +253,12 @@ def widest_gap(cell, seed: int, device, reqs, done, precision: str = "") -> floa
     the reference's best logit and its logit of the token served; with a
     ``precision``, of the token that reference in that precision (the
     control) puts first instead."""
-    from reference import lm
-
-    conf = cell.config
+    conf, lm = cell.config, cell.reference
     by_rid = {r["rid"]: r for r in reqs}
     lm.full_f32()
     ref = lm.Ref(conf)
     control = lm.Ref(conf, precision) if precision else None
-    W = weights.make(conf, seed, device)
+    W = weights.make(lm, conf, seed, device)
     widest = 0.0
     for rid in sample(reqs, done, seed, cell.mix["sample_served_tokens"]):
         prompt = torch.from_numpy(by_rid[rid]["prompt"]).to(device).long()

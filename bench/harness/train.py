@@ -7,14 +7,16 @@ Set-up writes the mix's corpus from the seed into a record file under
 pipeline's producer thread, draws the weights into the trainer's
 parameters, and runs the first ``check_steps`` steps through
 ``Trainer.train`` (one, then the rest), reading the program's side of the
-check from them.  The window is the same trainer's ``train`` on from there,
-``max_steps`` set from set-up's step time so that it lasts about
-``--seconds``; tokens a second are all its tokens over all its time.
+check from them; for a MoE configuration with ``routes.Recorder`` around
+each of those steps, which keeps the program's routing decisions.  The
+window is the same trainer's ``train`` on from there, with the recorder
+taken away and ``max_steps`` set from set-up's step time so that it lasts
+about ``--seconds``; tokens a second are all its tokens over all its time.
 
-After the window the program is freed, and the reference follows the
-first steps on the same corpus rows and weights, made again from the
-seed.  The epoch's record ids and every batch the window fed are checked
-against the corpus.
+After the window the program is freed, and the configuration's reference
+follows the first steps on the same corpus rows and weights, made again
+from the seed, routing each MoE layer as the program did.  The epoch's
+record ids and every batch the window fed are checked against the corpus.
 """
 from __future__ import annotations
 
@@ -24,12 +26,12 @@ import shutil
 import statistics
 import tempfile
 import time
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 
-from harness import common, flops, profile, spec, weights
+from harness import common, flops, profile, routes, spec, weights
 
 GIB = 2 ** 30
 
@@ -74,12 +76,6 @@ class Feed:
         return out
 
 
-def _by_name(conf: Dict, tree) -> Dict[str, torch.Tensor]:
-    """The program's tree's leaves under the benchmark's leaf names."""
-    names = {weights.port_path(n): n for n, _, _ in weights.leaves(conf)}
-    return {names[p]: t for p, t in weights.port_leaves(tree).items()}
-
-
 def run(cell: spec.Cell, seed: int, seconds: float, trace: bool, device) -> Dict:
     from repro_torch.core.shuffler import LIRSShuffler
     from repro_torch.models.model import AUX_LOSS_WEIGHT
@@ -89,8 +85,8 @@ def run(cell: spec.Cell, seed: int, seconds: float, trace: bool, device) -> Dict
 
     t_setup = time.perf_counter()
     phases = common.Phases()
-    mix, conf = cell.mix, cell.config
-    cfg = spec.port_config(conf, remat=mix["remat"])
+    mix, conf, ref = cell.mix, cell.config, cell.reference
+    cfg = spec.port_config(conf, remat=mix["remat"], ref=ref)
     aux_weight = conf.get("router_aux_loss_coef", 0.0)
     if cfg.moe is not None and aux_weight != AUX_LOSS_WEIGHT:
         raise ValueError(f"the port's aux loss weight {AUX_LOSS_WEIGHT} is not the file's {aux_weight}")
@@ -115,19 +111,28 @@ def run(cell: spec.Cell, seed: int, seconds: float, trace: bool, device) -> Dict
         trainer = Trainer(cfg, feed.fetch, shuffler, loop, opt_cfg=AdamWConfig(**opt),
                           put_fn=feed.put, num_producers=mix["producers"], device=device)
         phases.mark("trainer")
-        weights.fill_port(conf, seed, trainer.state["params"])
+        weights.fill_port(ref, conf, seed, trainer.state["params"])
         phases.mark("weights")
+        step_fn, recorder = trainer.step_fn, None
+        if cfg.moe is not None:
+            recorder = routes.Recorder(flops.experts(conf)[1], cfg.moe.experts_per_token)
+            trainer.step_fn = recorder.wrap(step_fn)
         trainer.train()  # step 1: the first gradient, as AdamW's first moment holds it
         phases.mark("step1")
         first = {name: float(mu.norm()) / (1.0 - opt["b1"])
-                 for name, mu in _by_name(conf, trainer.state["opt"]["mu"]).items()}
+                 for name, mu in weights.by_name(ref, conf, trainer.state["opt"]["mu"]).items()}
         loop.max_steps, trainer.start_step_in_epoch, feed.skip = k, 1, 1
         trainer.train()
+        trainer.step_fn = step_fn
         phases.mark("steps")
-        change = {name: float((p - weights.make_one(conf, seed, name, device)).norm())
-                  for name, p in _by_name(conf, trainer.state["params"]).items()}
+        change = {name: float((p - weights.make_one(ref, conf, seed, name, device)).norm())
+                  for name, p in weights.by_name(ref, conf, trainer.state["params"]).items()}
         program = {"losses": [h["loss"] for h in trainer.history[:k]],
                    "grad_norms": first, "change_norms": change}
+        if recorder is not None:
+            program["routes"], program["route_recompute_mismatch"] = recorder.split(
+                ref.moe_layers(conf), cfg.remat in ("dots", "full"))
+            recorder.steps.clear()
         step_s = statistics.median(trainer.step_seconds[1:k])
         steps = max(1, round(seconds / step_s))
         checked = list(feed.fed)
@@ -192,27 +197,42 @@ def batch_checks(mix, conf, seed, fed, perm) -> Dict[str, float]:
 
 
 def reference_readings(cell, seed: int, device, ids: List[np.ndarray], precision: str = "f32",
-                       loss_tokens: float = 1.0) -> Dict:
+                       loss_tokens: float = 1.0, routes=None) -> Dict:
     """The reference's losses, first gradients' and changes' norms over the
-    corpus rows ``ids`` (one array a step), in ``precision``.
-    ``loss_tokens`` < 1 plants a fault: the loss over that leading share of
-    each sequence's tokens only."""
-    from reference import lm
-
-    mix, conf = cell.mix, cell.config
+    corpus rows ``ids`` (one array a step), in ``precision``; a MoE
+    configuration routes by ``routes`` (ids by layer, a step:
+    the program's, or another side's) where they are given, and returns
+    its own where not (``train_readings``).  ``loss_tokens`` < 1 plants a
+    fault: the loss over that leading share of each sequence's tokens
+    only."""
+    mix, conf, ref = cell.mix, cell.config, cell.reference
     rows = corpus(seed, mix["records"], mix["seq_len"] + 1, conf["vocab_size"])
     cut = max(1, int(round(mix["seq_len"] * loss_tokens)))
     batches = [{"tokens": torch.from_numpy(rows[i][:, :-1]).to(device),
                 "labels": torch.from_numpy(rows[i][:, 1:][:, :cut]).to(device)} for i in ids]
     del rows
-    lm.full_f32()
-    W = weights.make(conf, seed, device)
-    out = lm.train_readings(lm.Ref(conf, precision), W, batches, mix["optimizer"],
-                            conf.get("router_aux_loss_coef", 0.0),
-                            lambda name: weights.make_one(conf, seed, name, device),
-                            steps=len(ids))
+    ref.full_f32()
+    W = weights.make(ref, conf, seed, device)
+    out = ref.train_readings(ref.Ref(conf, precision), W, batches, mix["optimizer"],
+                             conf.get("router_aux_loss_coef", 0.0),
+                             lambda name: weights.make_one(ref, conf, seed, name, device),
+                             steps=len(ids), routes=routes)
     del W
     return out
+
+
+def side_readings(cell, seed: int, device, ids: List[np.ndarray], **side) -> Tuple[Dict, Dict]:
+    """The readings of another side than the program (the float8 control,
+    ``precision="fp8"``, or a planted fault), and those of the float32
+    reference it is held against, as the program is held: routed by the
+    side's own routes, where the model routes."""
+    other = reference_readings(cell, seed, device, ids, **side)
+    return other, reference_readings(cell, seed, device, ids, routes=other.get("routes"))
+
+
+def side_gaps(cell, seed: int, device, ids: List[np.ndarray], **side) -> Dict[str, float]:
+    """``gaps`` of another side than the program (``side_readings``)."""
+    return gaps(*side_readings(cell, seed, device, ids, **side))
 
 
 def leaf_gaps(program: Dict, ref: Dict) -> Dict[str, Dict[str, float]]:
@@ -234,21 +254,30 @@ def gaps(program: Dict, ref: Dict) -> Dict[str, float]:
     """The numbers compared: the largest relative gap of a step's loss; of
     a leaf's first-gradient norm and of its change's norm (worst leaf,
     ``common.worst_leaf_gap``), the change over the leaves whose reference
-    gradient is at least a thousandth of the median leaf's."""
+    gradient is at least a thousandth of the median leaf's.  A reference
+    routed by the program's routes adds ``route_gap``: the share of those
+    (token, choice) pairs that it ranks outside its own top k by more than
+    its near-tie margin."""
     med = statistics.median(ref["grad_norms"].values())
     moved = [k for k, g in ref["grad_norms"].items() if g >= 1e-3 * med]
-    return {
+    out = {
         "loss_gap": max(abs(p - q) / abs(q) for p, q in zip(program["losses"], ref["losses"])),
         "grad_gap": common.worst_leaf_gap(program["grad_norms"], ref["grad_norms"]),
         "update_gap": common.worst_leaf_gap(program["change_norms"], ref["change_norms"], moved),
     }
+    if "route_pairs" in ref:
+        out["route_gap"] = ref["route_outside"] / ref["route_pairs"]
+    return out
 
 
 def _check(cell, seed, device, program, checked, fed, perm) -> List[Dict]:
     """The reference follows the first steps; the ids and batches are
     compared with the corpus made again from the seed."""
     counts = batch_checks(cell.mix, cell.config, seed, checked + fed, perm)
-    ref = reference_readings(cell, seed, device, [b["ids"] for b in checked])
+    if "route_recompute_mismatch" in program:
+        counts["route_recompute_mismatch"] = float(program["route_recompute_mismatch"])
+    ref = reference_readings(cell, seed, device, [b["ids"] for b in checked],
+                             routes=program.get("routes"))
     found = gaps(program, ref)
     return ([common.check(k, v, cell.limits[k]) for k, v in found.items()]
             + [common.check(k, v, 0.0) for k, v in counts.items()])

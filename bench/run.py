@@ -7,8 +7,9 @@ name from ``BENCHMARK.json`` at the root of the checkout (see
 ``harness/spec.py``).  With ``--trace 0`` the result carries the cell's
 end-to-end metrics; with ``--trace 1`` its per-layer metrics, read from a
 profile of the first ``trace_seconds`` of the window.  Either way the run
-checks what the window produced against the plain reference
-(``reference/lm.py``) and prints each number compared beside its limit.
+checks what the window produced against the configuration's plain
+reference (``reference/lm.py``, or the module its file names) and prints
+each number compared beside its limit.
 
 The run refuses to start without as many CUDA devices as the cell asks
 for, and refuses to print a result if JAX or the JAX package ``repro`` is

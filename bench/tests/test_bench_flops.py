@@ -5,7 +5,7 @@ import json
 
 import pytest
 
-from conftest import BENCH
+from conftest import BENCH, MOE
 from harness import flops
 
 TINY = {"hidden_size": 4, "num_attention_heads": 2, "num_key_value_heads": 1, "head_dim": 2,
@@ -21,6 +21,20 @@ def test_matrix_params_by_hand():
     assert flops.matrix_params(TINY, lm_head=False) == 84
     # router 4·3; two routed experts 2·3·4·3; shared 3·4·2
     assert flops.matrix_params(TINY_MOE) == 48 + 12 + 72 + 24 + 20
+
+
+def test_an_expert_share_by_hand():
+    """A chip holding 3 of the 6 experts its router routes over: the
+    router at 6, k = 2 routed experts a token of which this chip computes
+    2 × 3 / 6 = 1 on average, the shared expert once."""
+    share = dict(MOE, num_experts=3, published={"num_experts": 6})
+    assert flops.experts(share) == (3, 6) and flops.experts(MOE) == (6, 6)
+    # attention 64·4·16·2 + 64·4·16·2; router 64·6; one expert 3·64·64;
+    # shared 3·64·128; 2 layers; lm_head 64·512
+    per_layer = 8192 + 8192 + 384 + 12288 + 24576
+    assert flops.matrix_params(share) == 2 * per_layer + 32768 == 140032
+    # all six held: two whole experts a token
+    assert flops.matrix_params(MOE) == 2 * (per_layer + 12288) + 32768
 
 
 def test_train_flops_per_token_by_hand():

@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 import torch
 
-from conftest import DENSE, SERVE_LIMITS, TIED, TRAIN_LIMITS, run_cell
+from conftest import DENSE, SERVE_LIMITS, TIED, run_cell
 from harness import serve, spec, train, weights
 from reference import lm
 
@@ -21,7 +21,7 @@ def _port_logits(conf, seed, prompt, fed):
     from repro_torch.models import model as M
 
     cfg = spec.port_config(conf)
-    params = serve._port_params(cfg, conf, seed, torch.device("cpu"))
+    params = serve._port_params(cfg, conf, seed, torch.device("cpu"), lm)
     cap = 32
     padded = torch.zeros((1, cap), dtype=torch.int32)
     padded[0, :len(prompt)] = prompt
@@ -47,7 +47,7 @@ def test_prefill_then_decode_agree_with_the_full_forward(conf):
     port = _port_logits(conf, SEED, prompt, fed)
     seq = torch.cat([prompt, torch.tensor(fed[:-1])])[None]
     pos = torch.arange(len(prompt) - 1, seq.shape[1] + 1)
-    W = weights.make(conf, SEED, "cpu")
+    W = weights.make(lm, conf, SEED, "cpu")
     full = torch.cat([seq, torch.tensor([[fed[-1]]])], 1)
     ref = lm.Ref(conf).logits_at(W, full, pos)
     ctl = lm.Ref(conf, "fp8").logits_at(W, full, pos)
@@ -64,18 +64,19 @@ def test_port_passes_its_check(smoke_root, cell):
     assert rc == 0 and result["correct"], err[-2000:]
 
 
-@pytest.mark.parametrize("name", ["dense.train", "tied.train"])
+@pytest.mark.parametrize("name", ["dense.train", "tied.train", "moe.train"])
 @pytest.mark.parametrize("seed", [21, 22, 23])
 def test_float8_control_fails_the_training_check(smoke_root, seed, name):
     """The control, the reference with its products in float8 in the
-    program's place, fails one of the training cell's numbers."""
+    program's place, fails one of the training cell's numbers; held as the
+    program is held, against the float32 reference routed by the control's
+    own routes where the model routes."""
     cell = spec.load(name, smoke_root, smoke_root / "bench")
     mix = cell.mix
     ids = [np.array([i]) for i in np.random.default_rng(seed).permutation(mix["records"])[:3]]
-    ref = train.reference_readings(cell, seed, torch.device("cpu"), ids)
-    ctl = train.reference_readings(cell, seed, torch.device("cpu"), ids, precision="fp8")
-    found = train.gaps(ctl, ref)
-    assert any(found[k] > TRAIN_LIMITS[k] for k in TRAIN_LIMITS), found
+    found = train.side_gaps(cell, seed, torch.device("cpu"), ids, precision="fp8")
+    assert set(found) == set(cell.limits)
+    assert any(found[k] > cell.limits[k] for k in found), found
 
 
 @pytest.mark.parametrize("seed", [21, 22, 23])

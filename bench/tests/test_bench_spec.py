@@ -34,7 +34,8 @@ def test_every_cell_loads_by_name(cell):
     assert len(c.end_to_end) >= 3 and c.per_layer
     for m in c.per_layer:
         assert callable(spec.reader(m["name"]))
-    assert set(c.limits) <= {"loss_gap", "grad_gap", "update_gap", "served_logit_gap"}
+    assert set(c.limits) <= {"loss_gap", "grad_gap", "update_gap", "route_gap",
+                             "served_logit_gap"}
 
 
 def test_names_units_and_whys_keep_to_the_contract():
@@ -94,6 +95,51 @@ def test_a_new_cell_needs_only_new_files(tmp_path, smoke_root):
     assert "mfu.train" in result["metrics"]
 
 
+def _checks(result):
+    return {k: v["value"] for k, v in result["checks"].items()}
+
+
+def test_a_new_reference_needs_only_new_files(smoke_root):
+    """A configuration that names its own reference module: a copy of
+    ``lm.py`` under another name, its configuration, limits and cells for
+    training and serving, all new files and entries.  The copy's training
+    check reads what ``lm``'s reads (serving's sample of requests hangs on
+    the wall clock); a copy with its products changed makes the run not
+    correct, so the named module is the one that ran."""
+    root = smoke_root
+    ref_dir = root / "bench" / "reference"
+    lm = (ref_dir / "lm.py").read_text()
+    (ref_dir / "lm_twin.py").write_text(lm)
+    (ref_dir / "lm_off.py").write_text(lm.replace("        return a @ b\n",
+                                                  "        return (a @ b) * 1.01\n"))
+    b = json.loads((root / "BENCHMARK.json").read_text())
+    conf = json.loads((root / "bench" / "configs" / "dense-smoke.json").read_text())
+    for module in ("lm_twin", "lm_off"):
+        c = dict(conf, name=f"dense-{module}", reference=module)
+        (root / "bench" / "configs" / f"{c['name']}.json").write_text(json.dumps(c))
+        b["configs"].append({"name": c["name"], "source": "smoke", "reduced": [], "why": "x",
+                             "file": f"bench/configs/{c['name']}.json"})
+        for kind, traffic in (("train", "train-smoke"), ("serve", "serve-smoke")):
+            cell = f"{module}.{kind}"
+            shutil.copy(root / "bench" / "limits" / f"dense.{kind}.json",
+                        root / "bench" / "limits" / f"{cell}.json")
+            b["workloads"].append({"name": cell, "config": c["name"], "traffic": traffic,
+                                   "chips": 1, "why": "x"})
+            for m in b["end_to_end"] + b["per_layer"]:
+                if "workloads" in m and f"dense.{kind}" in m["workloads"]:
+                    m["workloads"].append(cell)
+    (root / "BENCHMARK.json").write_text(json.dumps(b))
+    assert spec.reference(conf, root / "bench").__file__ == str((ref_dir / "lm.py").resolve())
+    rc, want, _ = run_cell(root, "dense.train", seconds=1)
+    got = {}
+    for kind in ("train", "serve"):
+        rc_twin, got[kind], err = run_cell(root, f"lm_twin.{kind}", seconds=1)
+        assert rc == rc_twin == 0 and got[kind]["correct"], err[-2000:]
+    assert _checks(got["train"]) == _checks(want)
+    rc, off, _ = run_cell(root, "lm_off.train", seconds=1)
+    assert rc == 0 and not off["correct"]
+
+
 def test_no_card_no_result(smoke_root, capsys):
     """Without as many CUDA devices as the cell asks for, the run exits
     with another code than 0 and prints no result."""
@@ -142,7 +188,7 @@ def test_the_recorder_reads_every_decode_row(smoke_root):
     cell = spec.load("dense.serve", smoke_root, smoke_root / "bench")
     conf, mix = cell.config, cell.mix
     cfg = spec.port_config(conf)
-    params = serve._port_params(cfg, conf, 5, torch.device("cpu"))
+    params = serve._port_params(cfg, conf, 5, torch.device("cpu"), cell.reference)
     clock = serve.WallClock()
     engine = ServeEngine(cfg, params, max_batch=mix["max_batch"],
                          prompt_capacity=mix["prompt_capacity"],

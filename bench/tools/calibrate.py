@@ -10,8 +10,12 @@ control seed, besides: the control, the reference computed with its
 products in float8 (e4m3) in the program's place, read against the float32
 reference on the same inputs; and, for a training cell, the fault of a loss
 taken over half of each sequence's tokens (batch 1 has no half of a batch
-to leave out).  One JSON line a reading, on standard output and in
-``--out``.
+to leave out).  Each of those is held as the program is held: a MoE
+configuration's float32 reference routes by that side's own routes
+(``train.side_readings``).  One JSON line a reading, on standard output
+and in ``--out``.  A configuration's limits are read before its cell is
+kept: in a scratch checkout whose ``BENCHMARK.json`` holds the cell, with
+a limits file of trial values.
 """
 from __future__ import annotations
 
@@ -69,16 +73,18 @@ def main(argv=None, device=None, root: Path = ROOT, bench: Path = BENCH) -> int:
         if seed not in controls:
             continue
         if cell.generator == "train":
-            ref = gen.reference_readings(cell, seed, device, out["check_ids"])
+            ids = out["check_ids"]
             if args.detail:
+                ref = gen.reference_readings(cell, seed, device, ids,
+                                             routes=out["program"].get("routes"))
                 emit({"seed": seed, "side": "program_detail",
                       **gen.leaf_gaps(out["program"], ref)})
             for side, kw in (("control_fp8", {"precision": "fp8"}),
                              ("fault_half_tokens", {"loss_tokens": 0.5})):
-                other = gen.reference_readings(cell, seed, device, out["check_ids"], **kw)
-                emit({"seed": seed, "side": side, **gen.gaps(other, ref)})
+                other, base = gen.side_readings(cell, seed, device, ids, **kw)
+                emit({"seed": seed, "side": side, **gen.gaps(other, base)})
                 if args.detail:
-                    emit({"seed": seed, "side": side + "_detail", **gen.leaf_gaps(other, ref)})
+                    emit({"seed": seed, "side": side + "_detail", **gen.leaf_gaps(other, base)})
         else:
             gap = gen.widest_gap(cell, seed, device, out["requests"], out["served"], "fp8")
             emit({"seed": seed, "side": "control_fp8", "served_logit_gap": gap})
